@@ -1,0 +1,402 @@
+"""Chip smoke test of the PyTorch port (picotron_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases, each of which must pass:
+
+1. the card's name and power limit (nvidia-smi), then the CUDA kernels
+   built from this checkout's sources (build seconds printed);
+2. every kernel against its plain PyTorch version on the card, in bf16, at
+   the serving path's shapes plus a GQA shape: one JSON line per shape
+   with the kernel's time, the plain version's, one library call's
+   (a yardstick only; the port never calls it) and the card's lower bound;
+3. the main path: SmolLM-1.7B at full width and depth (random weights from
+   a fixed seed, bf16) behind InferenceEngine + ContinuousBatcher with
+   ``attend_impl="flash"``, serving 8 requests (six greedy, two sampled;
+   three prompts long enough for chunked prefill). Every request must
+   return its full budget of in-vocabulary tokens, every kernel's launch
+   count must rise during the run, and each greedy stream must agree with
+   a full-sequence forward of the same weights (every generated token
+   within a small margin of that position's top logit); then the
+   ``picotron_tpu_torch.tools.generate`` command line on the same model,
+   which must serve on the card without being told to;
+4. the main path's requests once more under torch.profiler: where the
+   device time went, and the device's busy share of the wall time;
+5. a ``{"kernels": [...]}`` line with each kernel's launches on the main
+   path, then ``{"ok": true, "device": {...}}`` as the last line.
+
+Any failure exits non-zero before the last line is printed. Without a
+CUDA card, or outside a checkout that holds the package, it fails at once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(HERE, "configs", "2_smollm_dp8", "config.json")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+DEVICE = "cuda"
+SEED = 0
+NEW_TOKENS = 64
+PROMPT_LENS = (24, 48, 130, 260, 400, 600, 777, 900)
+SAMPLED = (3, 6)  # request indices drawn at temperature 0.8, top-p 0.9
+LOGIT_MARGIN = 0.3  # greedy token vs the reference's top logit (see phase 3)
+RTOL = ATOL = 2e-2  # kernel vs plain version in bf16 (see _check)
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0].strip()
+
+
+def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: float, flops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _check(name, got, want, mask=None) -> float:
+    """Max |kernel - plain| over the compared entries; fails past
+    |d| <= ATOL + RTOL * |plain|. Both sides are bf16 outputs of fp32
+    arithmetic summed in different orders, so they may differ by a
+    rounding step of bf16 (2^-8 relative) and a little more where the
+    softmax and the sum of squares reassociate."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    bad = err > ATOL + RTOL * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} entries outside tolerance, max abs "
+            f"err {float(err.max()):.4g}")
+    return float(err.max())
+
+
+def _kernel_checks(torch, F) -> dict:
+    """Phase 2: each kernel against its plain version; returns per-kernel
+    records for the closing line (the main-path shape's times, the
+    largest error over every checked shape)."""
+    from picotron_tpu_torch.ops.kernels import decode_attention as kc
+    from picotron_tpu_torch.ops.kernels import flash_attention as kb
+    from picotron_tpu_torch.ops.kernels import rmsnorm as ka
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    records = {}
+
+    def record(kernel, shape, err, ms, plain_ms, library_ms, bound, main):
+        line = {"kernel": kernel.name, "shape": shape, "max_abs_err": err,
+                "kernel_ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+        print(json.dumps(line), flush=True)
+        rec = records.setdefault(kernel.name, {"max_abs_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if main:
+            rec.update(shape=shape, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound[0],
+                       bound_by=bound[1])
+
+    # A: RMSNorm over [rows, 2048] (decode: rows = slots; prefill: bucket)
+    H, eps = 2048, 1e-5
+    for rows in (8, 512):
+        x, w = randn(rows, H), (1.0 + 0.1 * randn(H).float()).to(bf)
+        err = _check(f"rmsnorm rows={rows}", ka.rms_norm(x, w, eps),
+                     ka.rms_norm_plain(x, w, eps))
+        record(ka.KERNEL, {"rows": rows, "H": H}, err,
+               _time_ms(lambda: ka.rms_norm(x, w, eps)),
+               _time_ms(lambda: ka.rms_norm_plain(x, w, eps)),
+               (_time_ms(lambda: F.rms_norm(x, (H,), w, eps))
+                if hasattr(F, "rms_norm") else None),
+               _bound((2 * rows * H + H) * 2, 0.0), main=rows == 8)
+
+    # B: causal prefill attention, [1, S, 32, 64]; one GQA shape (g = 4)
+    for S, nh, nkv in ((16, 32, 32), (48, 32, 32), (512, 32, 32),
+                       (2048, 32, 32), (512, 32, 8)):
+        D = 64
+        q, k, v = randn(1, S, nh, D), randn(1, S, nkv, D), randn(1, S, nkv, D)
+        scale = D ** -0.5
+        err = _check(f"flash_attention S={S} H={nh} Hkv={nkv}",
+                     kb.flash_attention(q, k, v, scale),
+                     kb.flash_attention_plain(q, k, v, scale))
+        g = nh // nkv
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
+                      (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+        flops = 4 * D * nh * S * (S + 1) / 2
+        record(kb.KERNEL, {"B": 1, "S": S, "H": nh, "Hkv": nkv, "D": D}, err,
+               _time_ms(lambda: kb.flash_attention(q, k, v, scale)),
+               _time_ms(lambda: kb.flash_attention_plain(q, k, v, scale)),
+               _time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, scale=scale)),
+               _bound((2 * nh + 2 * nkv) * S * D * 2, flops),
+               main=(S, nkv) == (512, 32))
+
+    # C: flash decode against an 8-slot, 2048-row cache (decode S = 1 and a
+    # 16-wide block), one slot empty; the 512-wide chunked-prefill shape;
+    # one GQA shape (g = 4)
+    T, D = 2048, 64
+    lens8 = [0, 1, 17, 128, 129, 700, 1500, 2048]
+    for B, S, nh, nkv, lens in ((8, 1, 32, 32, lens8), (8, 16, 32, 32, lens8),
+                                (1, 512, 32, 32, [1536]),
+                                (8, 1, 32, 8, lens8)):
+        q = randn(B, S, nh, D)
+        k, v = randn(B, T, nkv, D), randn(B, T, nkv, D)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+        live = lengths > 0  # an empty slot's rows are not compared
+        err = _check(f"flash_decode B={B} S={S} H={nh} Hkv={nkv}",
+                     kc.flash_decode_attention(q, k, v, lengths, scale),
+                     kc.flash_decode_attention_plain(q, k, v, lengths,
+                                                     scale), mask=live)
+        g = nh // nkv
+        pos_q = lengths[:, None] - S + torch.arange(S, device=dev)[None]
+        amask = (torch.arange(T, device=dev)[None, None]
+                 <= pos_q[:, :, None])[:, None]  # [B, 1, S, T]
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(g, 2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        visible = sum(max(0, min(L - S + s + 1, T)) for L in lens
+                      for s in range(S))
+        keys_read = sum(min(L, T) for L in lens)
+        nbytes = 2 * keys_read * nkv * D * 2 + 2 * B * S * nh * D * 2
+        record(kc.KERNEL, {"B": B, "S": S, "H": nh, "Hkv": nkv, "T": T,
+                           "D": D, "lengths": lens}, err,
+               _time_ms(lambda: kc.flash_decode_attention(q, k, v, lengths,
+                                                          scale)),
+               _time_ms(lambda: kc.flash_decode_attention_plain(
+                   q, k, v, lengths, scale)),
+               _time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=amask, scale=scale)),
+               _bound(nbytes, 4 * D * nh * visible),
+               main=(B, S, nkv) == (8, 1, 32))
+    return records
+
+
+def _greedy_agrees(torch, llama, params, cfg, res) -> float:
+    """The worst gap between a generated token's logit and the top logit
+    of a full-sequence forward over prompt + generated tokens: the
+    KV-cache path (prefill, chunks, decode blocks) must reproduce the
+    full-sequence model up to bf16 noise. A wrong cache position or mask
+    would pick tokens far from the top (about two units below it for a
+    random token of this model)."""
+    seq = res.prompt + res.tokens
+    toks = torch.tensor([seq], dtype=torch.int64, device=DEVICE)
+    logits = llama.forward_logits(params, toks, cfg)[0].float()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{res.uid}: non-finite reference logits")
+    n = len(res.prompt)
+    rows = logits[n - 1: len(seq) - 1]
+    picked = rows.gather(1, torch.tensor(res.tokens, device=DEVICE)[:, None])
+    gap = float((rows.amax(dim=1) - picked[:, 0]).max())
+    if gap > LOGIT_MARGIN:
+        raise AssertionError(
+            f"{res.uid}: a greedy token sits {gap:.3f} below the "
+            f"full-sequence top logit (margin {LOGIT_MARGIN})")
+    return gap
+
+
+def _profile(torch, run) -> None:
+    """Phase 4: the main path's requests once more under
+    torch.profiler. Prints one ``{"profile": ...}`` line: the wall time,
+    the summed device time of every kernel (one stream, so kernels do not
+    overlap and the sum over the wall is the device's busy share), and the
+    kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        t = getattr(e, "self_device_time_total", None)
+        return t if t is not None else e.self_cuda_time_total
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernels only: an operator's row repeats the time of the kernels it
+    # launched
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:15]
+    print(json.dumps({"profile": {
+        "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (wall * 1e3),
+        "top": [{"name": e.key[:90], "calls": e.count,
+                 "device_ms": dev_us(e) / 1e3} for e in top]}}), flush=True)
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "picotron_tpu_torch")):
+        raise RuntimeError("run chip_smoke.py from a checkout of the repo")
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    card = _card_line()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.ops.kernels import KERNELS, build
+
+    # 1. build
+    build_s = build.timed_library()
+    print(f"kernels built from {build.CSRC} in {build_s:.2f}s", flush=True)
+    log = os.path.join(build.BUILD_ROOT, build.source_hash(), "build.log")
+    with open(log) as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                print("  ptxas: " + line.strip().removeprefix("ptxas info    : "))
+
+    # 2. kernels against their plain versions
+    t0 = time.perf_counter()
+    records = _kernel_checks(torch, F)
+    print(f"kernel checks passed in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # 3. the main path at full width and depth
+    cfg = Config.from_json(CONFIG)
+    m = cfg.model
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, DEVICE, slots=8, attend_impl="flash")
+    params = llama.init_params(engine.cfg.model, seed=SEED,
+                               device=engine.device)
+    torch.cuda.synchronize()
+    print(f"engine: {m.name} L={m.num_hidden_layers} H={m.hidden_size} "
+          f"heads={m.num_attention_heads}/{m.num_key_value_heads} "
+          f"ffn={m.intermediate_size} vocab={m.vocab_size} {m.dtype}, "
+          f"slots={engine.slots} block={engine.decode_block_len} "
+          f"prefill_chunk={engine.prefill_chunk} attend=flash, built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    rng = np.random.default_rng(SEED)
+    # warm-up (cuBLAS and allocator set-up), outside the counted run
+    ContinuousBatcher(engine, params, seed=SEED).run(
+        [Request("warm", rng.integers(0, m.vocab_size, 24).tolist(),
+                 max_new_tokens=2)])
+    requests = [
+        Request(f"r{i}", rng.integers(0, m.vocab_size, n).tolist(),
+                max_new_tokens=NEW_TOKENS,
+                temperature=0.8 if i in SAMPLED else 0.0,
+                top_p=0.9 if i in SAMPLED else 1.0)
+        for i, n in enumerate(PROMPT_LENS)]
+    batcher = ContinuousBatcher(engine, params, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    results = batcher.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for r in requests:
+        res = results[r.uid]
+        if (len(res.tokens) != NEW_TOKENS or res.finish_reason != "length"
+                or not all(0 <= t < m.vocab_size for t in res.tokens)):
+            raise AssertionError(f"{r.uid}: {len(res.tokens)} tokens, "
+                                 f"{res.finish_reason}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the main path: {idle}")
+    ttft = sorted(results[r.uid].ttft_s for r in requests)
+    decode_tokens = batcher.generated_tokens - len(requests)
+    gaps = {r.uid: _greedy_agrees(torch, llama, params, engine.cfg,
+                                  results[r.uid])
+            for i, r in enumerate(requests) if i not in SAMPLED}
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B serve", "card": card, "requests":
+        len(requests), "prompt_lens": list(PROMPT_LENS),
+        "new_tokens_each": NEW_TOKENS, "wall_s": wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "decode_tokens_per_s": decode_tokens / batcher.decode_seconds,
+        "tokens_per_s": batcher.generated_tokens / wall,
+        "decode_dispatches": batcher.decode_dispatches,
+        "prefill_dispatches": batcher.prefill_dispatches,
+        "peak_mem_gib": peak_gib, "launches": launches,
+        "greedy_max_logit_gap": max(gaps.values())}), flush=True)
+
+    # 3b. the same path through the command-line tool, on the card by
+    # default (its launches are not part of the counted run)
+    from picotron_tpu_torch.tools import generate
+
+    t0 = time.perf_counter()
+    rc = generate.main(["--config", CONFIG, "--random-init", "--seed", "1",
+                        "--prompt-ids", "5,276,388", "--prompt-ids",
+                        ",".join(str(i) for i in range(1, 41)),
+                        "--max-new-tokens", "8", "--slots", "2",
+                        "--attend-impl", "flash"])
+    if rc != 0:
+        raise AssertionError(f"generate CLI exited {rc}")
+    print(f"generate CLI passed in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    # 4. where the device time goes
+    _profile(torch, lambda: ContinuousBatcher(engine, params, seed=SEED).run(
+        [Request(r.uid, r.prompt, r.max_new_tokens, r.temperature, r.top_k,
+                 r.top_p) for r in requests]))
+
+    # 5. the closing lines
+    kernels = [{"name": k.name, "route": k.route, "source": k.source,
+                "replaces": k.replaces, "launches": launches[k.name],
+                **{key: records[k.name][key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}}
+               for k in KERNELS]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception as e:  # noqa: BLE001 - any failed phase fails the run
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        sys.exit(1)
