@@ -7,23 +7,37 @@ Run from the root of a checkout. Phases, each of which must pass:
 1. the card's name and power limit (nvidia-smi), then the CUDA kernels
    built from this checkout's sources (build seconds printed);
 2. every kernel against its plain PyTorch version on the card, in bf16, at
-   the serving path's shapes plus a GQA shape: one JSON line per shape
-   with the kernel's time, the plain version's, one library call's
-   (a yardstick only; the port never calls it) and the card's lower bound;
-3. the main path: SmolLM-1.7B at full width and depth (random weights from
-   a fixed seed, bf16) behind InferenceEngine + ContinuousBatcher with
+   the main paths' shapes plus a ragged and a GQA shape: one JSON line per
+   shape with the kernel's time, the plain version's, one library call's
+   (a yardstick only; the port never calls it) and the card's lower bound.
+   The backward kernels' library yardstick is F.rms_norm and
+   F.scaled_dot_product_attention under autograd, timed as forward +
+   backward less forward;
+3. the serving path: SmolLM-1.7B at full width and depth (random weights
+   from a fixed seed, bf16) behind InferenceEngine + ContinuousBatcher with
    ``attend_impl="flash"``, serving 8 requests (six greedy, two sampled;
    three prompts long enough for chunked prefill). Every request must
-   return its full budget of in-vocabulary tokens, every kernel's launch
-   count must rise during the run, and each greedy stream must agree with
-   a full-sequence forward of the same weights (every generated token
-   within a small margin of that position's top logit); then the
+   return its full budget of in-vocabulary tokens, every serving kernel's
+   launch count must rise during the run, and each greedy stream must
+   agree with a full-sequence forward of the same weights (every generated
+   token within a small margin of that position's top logit); then the
    ``picotron_tpu_torch.tools.generate`` command line on the same model,
    which must serve on the card without being told to;
-4. the main path's requests once more under torch.profiler: where the
-   device time went, and the device's busy share of the wall time;
-5. a ``{"kernels": [...]}`` line with each kernel's launches on the main
-   path, then ``{"ok": true, "device": {...}}`` as the last line.
+4. the serving requests once more under torch.profiler: where the device
+   time went, and the device's busy share of the wall time;
+5. the training path: config #2's ``model`` and ``training`` sections on a
+   single device (full-width, 24-layer SmolLM-1.7B, seq 2048 x micro-batch
+   4, remat "full", AdamW) from a fixed seed over the synthetic loader.
+   First the gate: one step's loss and gradients through the kernels must
+   agree with the plain path (``attention_impl: "sdpa"``,
+   ``use_pallas_rmsnorm: false``) from the same parameters and batch. Then
+   warm-up steps and timed steps: every loss finite, every training
+   kernel launched. Then the ``picotron_tpu_torch.train`` command line on
+   config #1, on the card by default, and one training step under
+   torch.profiler;
+6. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+   path (and on each path), then ``{"ok": true, "device": {...}}`` as the
+   last line.
 
 Any failure exits non-zero before the last line is printed. Without a
 CUDA card, or outside a checkout that holds the package, it fails at once.
@@ -31,14 +45,19 @@ CUDA card, or outside a checkout that holds the package, it fails at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "configs", "2_smollm_dp8", "config.json")
+CONFIG_1 = os.path.join(HERE, "configs", "1_smollm_single_cpu", "config.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 DEVICE = "cuda"
@@ -48,6 +67,14 @@ PROMPT_LENS = (24, 48, 130, 260, 400, 600, 777, 900)
 SAMPLED = (3, 6)  # request indices drawn at temperature 0.8, top-p 0.9
 LOGIT_MARGIN = 0.3  # greedy token vs the reference's top logit (see phase 3)
 RTOL = ATOL = 2e-2  # kernel vs plain version in bf16 (see _check)
+WARMUP_STEPS = 2  # training steps before the timed ones
+TIMED_STEPS = 8
+# kernel path vs plain path, one training step in bf16 (phase 5): the two
+# round P at different places (the flash kernels to bf16 before P @ V, the
+# plain sdpa never) and sum in different orders. On an H100 that moved the
+# loss by 5e-6 and a gradient leaf by up to 1.6e-2 relative L2
+LOSS_RTOL = 5e-3
+GRAD_REL_L2 = 5e-2
 
 
 def _card_line() -> str:
@@ -118,7 +145,10 @@ def _kernel_checks(torch, F) -> dict:
 
     records = {}
 
-    def record(kernel, shape, err, ms, plain_ms, library_ms, bound, main):
+    def record(kernel, shape, err, ms, plain_ms, library_ms, bound, main,
+               variant=None):
+        """One shape's JSON line; the main-path shape's numbers go to the
+        closing line, and a variant's (B with its LSE) beside them."""
         line = {"kernel": kernel.name, "shape": shape, "max_abs_err": err,
                 "kernel_ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound[0],
@@ -130,6 +160,10 @@ def _kernel_checks(torch, F) -> dict:
             rec.update(shape=shape, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound[0],
                        bound_by=bound[1])
+        if variant is not None and shape.get("S") == 2048:
+            rec[variant] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound[0],
+                            "bound_by": bound[1]}
 
     # A: RMSNorm over [rows, 2048] (decode: rows = slots; prefill: bucket)
     H, eps = 2048, 1e-5
@@ -203,7 +237,118 @@ def _kernel_checks(torch, F) -> dict:
                    qt, kt, vt, attn_mask=amask, scale=scale)),
                _bound(nbytes, 4 * D * nh * visible),
                main=(B, S, nkv) == (8, 1, 32))
+    _training_kernel_checks(torch, F, randn, record)
     return records
+
+
+def _fwd_bwd_less_fwd_ms(torch, fwd, inputs, grad_out) -> float:
+    """A library call's backward time: forward + backward less forward,
+    under autograd, for ``inputs`` that require gradients."""
+    def both():
+        for t in inputs:
+            t.grad = None
+        fwd().backward(grad_out)
+
+    def fwd_only():
+        with torch.no_grad():
+            fwd()
+
+    return _time_ms(both) - _time_ms(fwd_only)
+
+
+def _training_kernel_checks(torch, F, randn, record) -> None:
+    """Phase 2, training kernels: D (RMSNorm backward), B with its LSE, E
+    (dQ) and F (dK/dV) at the training shapes, a ragged shape and a GQA
+    shape."""
+    from picotron_tpu_torch.ops.kernels import flash_attention as kb
+    from picotron_tpu_torch.ops.kernels import rmsnorm as ka
+
+    # D: RMSNorm backward over [rows, 2048]; 8192 rows = seq 2048 x
+    # micro-batch 4, and one ragged row count
+    H, eps = 2048, 1e-5
+    for rows in (8192, 1000):
+        x, dy = randn(rows, H), randn(rows, H)
+        w = (1.0 + 0.1 * randn(H).float()).to(torch.bfloat16)
+        dx, dw = ka.rms_norm_bwd(x, w, dy, eps)
+        pdx, pdw = ka.rms_norm_bwd_plain(x, w, dy, eps)
+        err = max(_check(f"rmsnorm_bwd dx rows={rows}", dx, pdx),
+                  _check(f"rmsnorm_bwd dw rows={rows}", dw, pdw))
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        lib = (_fwd_bwd_less_fwd_ms(
+            torch, lambda: F.rms_norm(xl, (H,), wl, eps), (xl, wl), dy)
+               if hasattr(F, "rms_norm") else None)
+        record(ka.KERNEL_BWD, {"rows": rows, "H": H}, err,
+               _time_ms(lambda: ka.rms_norm_bwd(x, w, dy, eps)),
+               _time_ms(lambda: ka.rms_norm_bwd_plain(x, w, dy, eps)),
+               lib, _bound((3 * rows * H + 2 * H) * 2, 0.0),
+               main=rows == 8192)
+
+    # B with its LSE, E and F: [4, 2048, 32, 64] (the training shape), a
+    # ragged S, and one GQA shape (g = 4)
+    for B, S, nh, nkv in ((4, 2048, 32, 32), (2, 130, 32, 32),
+                          (1, 1024, 32, 8)):
+        D = 64
+        scale = D ** -0.5
+        q, k, v = randn(B, S, nh, D), randn(B, S, nkv, D), randn(B, S, nkv, D)
+        do = randn(B, S, nh, D)
+        shape = {"B": B, "S": S, "H": nh, "Hkv": nkv, "D": D}
+        main = (B, S, nkv) == (4, 2048, 32)
+        pairs = B * nh * S * (S + 1) / 2  # causal (query, key) pairs
+        qo_bytes = B * S * nh * D * 2
+        kv_bytes = B * S * nkv * D * 2
+        row_bytes = B * nh * S * 4  # an fp32 [B, H, S] array
+
+        o, lse = kb.flash_attention_fwd(q, k, v, scale, return_lse=True)
+        po, plse = kb.flash_attention_plain(q, k, v, scale, return_lse=True)
+        err = max(_check(f"flash_attention+lse out {shape}", o, po),
+                  _check(f"flash_attention+lse lse {shape}", lse, plse))
+        g = nh // nkv
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
+                      (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, scale=scale)
+        record(kb.KERNEL, {**shape, "lse": True}, err,
+               _time_ms(lambda: kb.flash_attention_fwd(q, k, v, scale, True)),
+               _time_ms(lambda: kb.flash_attention_plain(q, k, v, scale,
+                                                         True)),
+               _time_ms(sdpa),
+               _bound(2 * qo_bytes + 2 * kv_bytes + row_bytes, 4 * D * pairs),
+               main=False, variant="lse")
+
+        # E: dq and delta; F: dk, dv from E's delta
+        dq, delta = kb.flash_attention_bwd_dq(q, k, v, o, lse, do, scale)
+        pdq, pdelta = kb.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                      scale)
+        err_e = max(_check(f"bwd_dq dq {shape}", dq, pdq),
+                    _check(f"bwd_dq delta {shape}", delta, pdelta))
+        dk, dv = kb.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        pdk, pdv = kb.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                    scale)
+        err_f = max(_check(f"bwd_dkv dk {shape}", dk, pdk),
+                    _check(f"bwd_dkv dv {shape}", dv, pdv))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
+        lib = _fwd_bwd_less_fwd_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                *leaves, is_causal=True, scale=scale),
+            leaves, do.transpose(1, 2).contiguous())
+        del leaves
+        record(kb.KERNEL_DQ, shape, err_e,
+               _time_ms(lambda: kb.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                          scale)),
+               _time_ms(lambda: kb.flash_attention_bwd_dq_plain(
+                   q, k, v, o, lse, do, scale)),
+               lib,
+               _bound(4 * qo_bytes + 2 * kv_bytes + 2 * row_bytes,
+                      6 * D * pairs), main=main)
+        record(kb.KERNEL_DKV, shape, err_f,
+               _time_ms(lambda: kb.flash_attention_bwd_dkv(
+                   q, k, v, do, lse, delta, scale)),
+               _time_ms(lambda: kb.flash_attention_bwd_dkv_plain(
+                   q, k, v, do, lse, delta, scale)),
+               lib,
+               _bound(2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes,
+                      8 * D * pairs), main=main)
+        torch.cuda.empty_cache()
 
 
 def _greedy_agrees(torch, llama, params, cfg, res) -> float:
@@ -229,8 +374,8 @@ def _greedy_agrees(torch, llama, params, cfg, res) -> float:
     return gap
 
 
-def _profile(torch, run) -> None:
-    """Phase 4: the main path's requests once more under
+def _profile(torch, run, path: str) -> None:
+    """Phases 4 and 5: ``run`` (a main path's work once more) under
     torch.profiler. Prints one ``{"profile": ...}`` line: the wall time,
     the summed device time of every kernel (one stream, so kernels do not
     overlap and the sum over the wall is the device's busy share), and the
@@ -255,10 +400,144 @@ def _profile(torch, run) -> None:
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:15]
     print(json.dumps({"profile": {
-        "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+        "path": path, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall * 1e3),
         "top": [{"name": e.key[:90], "calls": e.count,
                  "device_ms": dev_us(e) / 1e3} for e in top]}}), flush=True)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _training_agrees(torch, ts, llama, cfg, params, batch, device) -> dict:
+    """Phase 5's gate: one micro-batch's loss and gradients through the
+    kernels against the plain path (sdpa attention, plain RMSNorm with
+    torch autograd) from the same parameters and batch."""
+    from picotron_tpu_torch.config import Config
+
+    raw = cfg.to_dict()
+    raw["model"].update(attention_impl="sdpa", use_pallas_rmsnorm=False)
+    plain_cfg = Config.from_dict(raw)
+    cos, sin = (t.to(device) for t in llama.rope_tables(cfg))
+    tokens = torch.as_tensor(batch["input_ids"][0], device=device)
+    targets = torch.as_tensor(batch["target_ids"][0], device=device)
+    loss_k, grads_k = ts.loss_and_grads(params, tokens, targets, cos, sin,
+                                        cfg)
+    loss_p, grads_p = ts.loss_and_grads(params, tokens, targets, cos, sin,
+                                        plain_cfg)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rel = [_rel_l2(a, b) for a, b in zip(grads_k, grads_p)]
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    if not (loss_rel <= LOSS_RTOL and max(rel) <= GRAD_REL_L2):
+        raise AssertionError(
+            f"kernel path != plain path: loss {loss_k} vs {loss_p} (rel "
+            f"{loss_rel:.3g}, tol {LOSS_RTOL}); gradient rel L2 per leaf "
+            f"{[round(r, 5) for r in rel]} (tol {GRAD_REL_L2})")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": loss_rel, "grad_rel_l2_max": max(rel),
+            "grad_rel_l2": rel, "loss_rtol": LOSS_RTOL,
+            "grad_rel_l2_tol": GRAD_REL_L2}
+
+
+def _train_phase(torch, card: str, path_kernels, all_kernels) -> dict:
+    """Phase 5: the training main path. Every kernel's count is set to 0
+    just before the timed steps and read just after; returns those counts.
+    ``path_kernels`` must each have launched."""
+    from picotron_tpu_torch import train as train_cli
+    from picotron_tpu_torch import train_step as ts
+    from picotron_tpu_torch import utils
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.data import MicroBatchDataLoader
+    from picotron_tpu_torch.models import llama
+
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw["distributed"] = {}  # one of config #2's eight dp ranks
+    cfg = Config.from_dict(raw)
+    m, t = cfg.model, cfg.training
+    device = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    loader = MicroBatchDataLoader(cfg)
+    params, opt_state = ts.init_state(cfg, device=device, seed=SEED)
+    step_fn = ts.build_train_step(cfg)
+    torch.cuda.synchronize()
+    print(f"trainer: {m.name} L={m.num_hidden_layers} H={m.hidden_size} "
+          f"heads={m.num_attention_heads}/{m.num_key_value_heads} "
+          f"ffn={m.intermediate_size} vocab={m.vocab_size} {m.dtype}, seq "
+          f"{t.seq_length} x micro-batch {t.micro_batch_size} x grad-acc "
+          f"{t.gradient_accumulation_steps}, remat={t.remat}, set up in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    batch = next(loader)
+    t0 = time.perf_counter()
+    agree = _training_agrees(torch, ts, llama, cfg, params, batch, device)
+    print(json.dumps({"train_gate": agree,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+    def one_step(b):
+        nonlocal params, opt_state
+        params, opt_state, loss = step_fn(params, opt_state,
+                                          b["input_ids"], b["target_ids"])
+        return float(loss)
+
+    losses = [one_step(batch)]
+    for _ in range(WARMUP_STEPS - 1):
+        losses.append(one_step(next(loader)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in all_kernels:
+        kern.launches = 0
+    times = []
+    for _ in range(TIMED_STEPS):
+        b = next(loader)
+        t0 = time.perf_counter()
+        losses.append(one_step(b))  # float() waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = {kern.name: kern.launches for kern in all_kernels}
+    launches = {kern.name: counts[kern.name] for kern in path_kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the training path: "
+                             f"{idle}")
+    step_s = statistics.median(times)
+    tok_s = cfg.tokens_per_step / step_s
+    n_params = llama.num_params(m)
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B train", "card": card,
+        "n_params": n_params, "tokens_per_step": cfg.tokens_per_step,
+        "warmup_steps": WARMUP_STEPS, "timed_steps": TIMED_STEPS,
+        "losses": losses, "step_s": times, "median_step_s": step_s,
+        "tokens_per_s": tok_s,
+        "mfu_pct": utils.get_mfu(tok_s, n_params, m.num_hidden_layers,
+                                 m.hidden_size, t.seq_length,
+                                 BF16_FLOP_PER_S),
+        "peak_mem_gib": peak_gib, "launches": launches,
+        "launches_per_step": {k: n / TIMED_STEPS
+                              for k, n in launches.items()}}), flush=True)
+
+    # the trainer's command line, on the card by default (its launches are
+    # not part of the counted run)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--config", CONFIG_1, "--max-steps", "3"])
+    print(out.getvalue(), end="", flush=True)
+    steps = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("Step:")]
+    if rc != 0 or len(steps) != 3:
+        raise AssertionError(f"train CLI exited {rc} with {len(steps)} "
+                             f"step lines")
+    print(f"train CLI passed in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    _profile(torch, lambda: one_step(next(loader)), "train")
+    return counts
 
 
 def main() -> int:
@@ -270,6 +549,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
+    # full-precision fp32 products in the plain versions (PyTorch's
+    # defaults for matmul; cuDNN's default is TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = _card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -278,7 +561,12 @@ def main() -> int:
     from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
     from picotron_tpu_torch.inference.engine import InferenceEngine
     from picotron_tpu_torch.models import llama
-    from picotron_tpu_torch.ops.kernels import KERNELS, build
+    from picotron_tpu_torch.ops.kernels import (
+        KERNELS,
+        SERVING_KERNELS,
+        TRAINING_KERNELS,
+        build,
+    )
 
     # 1. build
     build_s = build.timed_library()
@@ -292,10 +580,11 @@ def main() -> int:
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     records = _kernel_checks(torch, F)
+    torch.cuda.empty_cache()
     print(f"kernel checks passed in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
-    # 3. the main path at full width and depth
+    # 3. the serving path at full width and depth
     cfg = Config.from_json(CONFIG)
     m = cfg.model
     t0 = time.perf_counter()
@@ -329,7 +618,9 @@ def main() -> int:
     results = batcher.run(requests)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kern.name: kern.launches for kern in KERNELS}
+    by_path = {"serve": {kern.name: kern.launches for kern in KERNELS}}
+    launches = {kern.name: by_path["serve"][kern.name]
+                for kern in SERVING_KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     for r in requests:
@@ -340,7 +631,8 @@ def main() -> int:
                                  f"{res.finish_reason}")
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
-        raise AssertionError(f"kernels not launched on the main path: {idle}")
+        raise AssertionError(
+            f"kernels not launched on the serving path: {idle}")
     ttft = sorted(results[r.uid].ttft_s for r in requests)
     decode_tokens = batcher.generated_tokens - len(requests)
     gaps = {r.uid: _greedy_agrees(torch, llama, params, engine.cfg,
@@ -372,17 +664,30 @@ def main() -> int:
         raise AssertionError(f"generate CLI exited {rc}")
     print(f"generate CLI passed in {time.perf_counter() - t0:.1f}s",
           flush=True)
-    # 4. where the device time goes
-    _profile(torch, lambda: ContinuousBatcher(engine, params, seed=SEED).run(
-        [Request(r.uid, r.prompt, r.max_new_tokens, r.temperature, r.top_k,
-                 r.top_p) for r in requests]))
+    # 4. where the serving path's device time goes
+    _profile(torch, lambda: ContinuousBatcher(engine, params,
+                                              seed=SEED).run(
+        [Request(r.uid, r.prompt, r.max_new_tokens, r.temperature,
+                 r.top_k, r.top_p) for r in requests]), "serve")
+    del engine, params, batcher, results
+    torch.cuda.empty_cache()
 
-    # 5. the closing lines
+    # 5. the training path at full width and depth
+    by_path["train"] = _train_phase(torch, card, TRAINING_KERNELS,
+                                    KERNELS)
+
+    # 6. the closing lines: each kernel's launches on its own path (serving
+    # for A, B, C; training for D, E, F), and on each path
+    own = {k.name: ("serve" if k in SERVING_KERNELS else "train")
+           for k in KERNELS}
     kernels = [{"name": k.name, "route": k.route, "source": k.source,
-                "replaces": k.replaces, "launches": launches[k.name],
-                **{key: records[k.name][key] for key in (
+                "replaces": k.replaces,
+                "launches": by_path[own[k.name]][k.name],
+                "launches_by_path": {path: counts[k.name]
+                                     for path, counts in by_path.items()},
+                **{key: records[k.name].get(key) for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "shape")}}
+                    "library_ms", "shape", "lse")}}
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and AdamW state between the JAX package and the port.
 
 Both packages keep the same tree: ``{"embed", "layers": {leaf: [L, ...]},
 "final_norm", "lm_head"}`` with linear weights ``(in, out)``. So a JAX
@@ -12,6 +12,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from picotron_tpu_torch.train_step import param_leaves
 
 
 def _to_tensor(a, device, dtype) -> torch.Tensor:
@@ -46,3 +48,63 @@ def params_to_jax(params: dict) -> dict[str, Any]:
 
     return {k: (params_to_jax(v) if isinstance(v, dict) else conv(v))
             for k, v in params.items()}
+
+
+def _adam_node(state):
+    """The node of an optax state tree that holds Adam's ``mu``, ``nu``
+    and ``count`` (``optax.chain(optax.adamw(...))`` nests it as
+    ``((ScaleByAdamState, ...),)``)."""
+    if {"mu", "nu", "count"} <= set(getattr(state, "_fields", ())):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _adam_node(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(state, device=None,
+                       dtype: torch.dtype | None = None) -> dict:
+    """The JAX package's optimizer state (``train_step.init_state``'s
+    ``optax.adamw`` state, fetched to numpy) -> the port's AdamW state
+    ``{"count", "mu", "nu"}`` (moments as lists in ``param_leaves``
+    order)."""
+    adam = _adam_node(state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the given tree")
+    return {"count": int(np.asarray(adam.count)),
+            "mu": param_leaves(params_from_jax(adam.mu, device, dtype)),
+            "nu": param_leaves(params_from_jax(adam.nu, device, dtype))}
+
+
+def opt_state_to_jax(opt_state: dict, template):
+    """The port's AdamW state -> the JAX package's state tree, shaped like
+    ``template`` (a JAX optimizer state of the same parameters, fetched to
+    numpy): its Adam node takes the moments and the count, and every
+    other node that counts steps (the learning-rate schedule's) takes the
+    count as well."""
+    count = np.asarray(opt_state["count"], np.int32)
+
+    def moments(like, flat):
+        it = iter(flat)
+
+        def fill(node):
+            return {k: (fill(v) if isinstance(v, dict)
+                        else params_to_jax({"x": next(it)})["x"])
+                    for k, v in sorted(node.items())}
+
+        return fill(like)
+
+    def rebuild(node):
+        fields = getattr(node, "_fields", None)
+        if fields is None:
+            return (tuple(rebuild(sub) for sub in node)
+                    if isinstance(node, tuple) else node)
+        if "mu" in fields:
+            return node._replace(count=count,
+                                 mu=moments(node.mu, opt_state["mu"]),
+                                 nu=moments(node.nu, opt_state["nu"]))
+        return node._replace(count=count) if "count" in fields else node
+
+    return rebuild(template)

@@ -3,6 +3,8 @@
 Port of ``picotron_tpu/models/llama.py`` (tp = 1, no pipeline): Embedding
 -> N x DecoderLayer (RMSNorm -> attention with RoPE and GQA -> residual ->
 RMSNorm -> SwiGLU MLP -> residual) -> final RMSNorm -> untied LM head.
+The training path is ``stage_apply`` (pp = 1): ``layers_forward`` with
+optional per-layer recompute, then ``loss_from_hidden``.
 
 The parameter layout is the JAX package's, so weights carry across as
 arrays (``convert.params_from_jax``): linear weights ``(in, out)`` applied
@@ -13,8 +15,10 @@ the values differ from ``jax.random``'s).
 
 RMSNorm and attention dispatch on the tensor's device: CUDA tensors go
 through the hand-written kernels (``ops/kernels``), CPU tensors through
-their plain versions. The projections and the LM head are ``torch.matmul``,
-as the JAX package leaves them to XLA.
+their plain versions; under autograd the kernels' ``autograd.Function``s
+run the backward kernels (D for RMSNorm, E and F for attention). The
+projections and the LM head are ``torch.matmul``, as the JAX package
+leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -24,11 +28,16 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from picotron_tpu_torch.config import Config, ModelConfig
 from picotron_tpu_torch.ops.attention import sdpa
+from picotron_tpu_torch.ops.cross_entropy import (
+    cross_entropy_fused,
+    cross_entropy_gathered,
+)
 from picotron_tpu_torch.ops.kernels.flash_attention import flash_attention
-from picotron_tpu_torch.ops.kernels.rmsnorm import rms_norm
+from picotron_tpu_torch.ops.kernels.rmsnorm import rms_norm, rms_norm_plain
 from picotron_tpu_torch.ops.rope import apply_rope, precompute_rope
 from picotron_tpu_torch.utils import torch_dtype
 
@@ -102,7 +111,14 @@ def _attention(q, k, v, cfg: Config, cache=None, pos=None):
 
 
 def _norm(x, w, cfg: Config):
-    return rms_norm(x, w, cfg.model.rms_norm_eps)
+    """``model.use_pallas_rmsnorm`` picks the RMSNorm: None = the kernels
+    for CUDA tensors, True = the kernels' wrapper always, False = the
+    plain version (differentiated by torch autograd)."""
+    use_kernel = cfg.model.use_pallas_rmsnorm
+    if use_kernel is None:
+        use_kernel = x.is_cuda
+    norm = rms_norm if use_kernel else rms_norm_plain
+    return norm(x, w, cfg.model.rms_norm_eps)
 
 
 def decoder_layer(lp: Params, h: torch.Tensor, cos, sin, cfg: Config,
@@ -144,6 +160,66 @@ def decoder_layer(lp: Params, h: torch.Tensor, cos, sin, cfg: Config,
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s slice of the stacked layer leaves."""
     return {name: w[i] for name, w in params["layers"].items()}
+
+
+def layers_forward(stacked: Params, h: torch.Tensor, cos, sin,
+                   cfg: Config) -> torch.Tensor:
+    """Every decoder layer over ``h`` (the JAX ``lax.scan`` over the
+    stack, as a loop). ``training.remat == "full"`` wraps each layer in
+    ``torch.utils.checkpoint`` (non-reentrant): the backward reruns the
+    layer's forward and keeps only the layer-boundary activations. The
+    stacked leaves are unbound once, so autograd returns each leaf's
+    gradient as one stack of the per-layer gradients."""
+    per_layer = {name: w.unbind(0) for name, w in stacked.items()}
+    remat = cfg.training.remat == "full" and torch.is_grad_enabled()
+    for i in range(cfg.model.num_hidden_layers):
+        lp = {name: ws[i] for name, ws in per_layer.items()}
+        if remat:
+            h = checkpoint(decoder_layer, lp, h, cos, sin, cfg,
+                           use_reentrant=False)
+        else:
+            h = decoder_layer(lp, h, cos, sin, cfg)
+    return h
+
+
+def loss_from_hidden(params: Params, h: torch.Tensor, targets: torch.Tensor,
+                     cfg: Config) -> torch.Tensor:
+    """Final norm -> LM head -> mean CE, by ``model.loss_impl``: "auto" and
+    "fused" take the row-chunked fused linear + CE (fp32 logits never
+    materialised whole); "gathered" and "vocab_parallel" (the same at
+    tp = 1) take materialised logits and the plain CE."""
+    x = _norm(h, params["final_norm"], cfg)
+    if cfg.model.loss_impl in ("auto", "fused"):
+        return cross_entropy_fused(x, params["lm_head"], targets)
+    return cross_entropy_gathered(x @ params["lm_head"], targets)
+
+
+def rope_tables(cfg: Config) -> tuple:
+    """Full-sequence (cos, sin) tables for the training sequence length,
+    in the compute dtype, on the CPU (``stage_apply`` moves them)."""
+    m = cfg.model
+    return precompute_rope(cfg.training.seq_length, m.head_dim,
+                           m.rope_theta, torch_dtype(m.dtype))
+
+
+def stage_apply(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
+                cos, sin, cfg: Config) -> tuple:
+    """The pp = 1 training program (the JAX ``stage_apply`` through
+    ``_stage_input`` and ``_stage_loss`` on a single stage): embed ->
+    layers -> loss. tokens/targets [B, S] -> (h [B, S, H], loss)."""
+    h = embed_lookup(params["embed"], tokens).to(torch_dtype(cfg.model.dtype))
+    h = layers_forward(params["layers"], h, cos, sin, cfg)
+    return h, loss_from_hidden(params, h, targets, cfg)
+
+
+def num_params(m: ModelConfig) -> int:
+    """Global parameter count, from the shapes."""
+    H, I, V, L, D = (m.hidden_size, m.intermediate_size, m.vocab_size,
+                     m.num_hidden_layers, m.head_dim)
+    per_layer = (H * m.num_attention_heads * D
+                 + 2 * H * m.num_key_value_heads * D
+                 + m.num_attention_heads * D * H + 3 * H * I + 2 * H)
+    return V * H + L * per_layer + H + H * V
 
 
 def head_logits(params: Params, h: torch.Tensor, cfg: Config) -> torch.Tensor:

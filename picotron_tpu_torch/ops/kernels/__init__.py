@@ -7,5 +7,13 @@ under ``csrc/`` at the first launch on a CUDA tensor.
 
 from picotron_tpu_torch.ops.kernels import decode_attention, flash_attention, rmsnorm
 
-# every kernel of the serving path, in the order the model reaches them
-KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL)
+# the kernels of each path, in the order the model reaches them
+SERVING_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
+                   decode_attention.KERNEL)
+TRAINING_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
+                    flash_attention.KERNEL_DQ, flash_attention.KERNEL_DKV,
+                    rmsnorm.KERNEL_BWD)
+# every kernel, in the order of the JAX package's Pallas kernels (A to F)
+KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
+           rmsnorm.KERNEL_BWD, flash_attention.KERNEL_DQ,
+           flash_attention.KERNEL_DKV)

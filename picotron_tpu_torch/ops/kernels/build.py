@@ -39,8 +39,11 @@ _F = ctypes.c_float
 # as int, 0 on success)
 SIGNATURES = {
     "picotron_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _P],
-    "picotron_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                     _P],
+    "picotron_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "picotron_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _F, _P],
+    "picotron_flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "picotron_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
     "picotron_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _P],
 }

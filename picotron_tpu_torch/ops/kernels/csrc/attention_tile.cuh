@@ -24,7 +24,10 @@
 //
 // A row whose every key is masked keeps l == 0 and writes zeros. With
 // kRoundP, p is rounded to bf16 before the P @ V product (the training
-// flash kernel's p.astype(v.dtype)); l always sums the fp32 p.
+// flash kernel's p.astype(v.dtype)); l always sums the fp32 p. With a
+// non-null lse, row r also writes its log-sum-exp m + log(l) (fp32) at
+// lse[r]: the residual the training backward (flash_attention_bwd.cu)
+// re-derives P from.
 //
 // Nothing carries over between blocks, unlike the TPU grid that runs in
 // order on one core: each block loops over its own KV tiles.
@@ -98,7 +101,8 @@ __device__ void attend_rows(Smem<D>& sm, int nr, int max_pos,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ o, size_t kv_stride,
-                            int n_keys, float scale) {
+                            int n_keys, float scale,
+                            float* __restrict__ lse = nullptr) {
   constexpr int kChunks = D / 8;             // 16-byte chunks per row
   constexpr int kRowStep = kThreads / D;     // rows between accumulators
   constexpr int kAcc = kRows / kRowStep;     // accumulators per thread
@@ -217,6 +221,10 @@ __device__ void attend_rows(Smem<D>& sm, int nr, int max_pos,
       const float l = sm.l[r];
       o[sm.off[r] + d] = __float2bfloat16(l > 0.f ? acc[j] / l : 0.f);
     }
+  }
+  if (lse != nullptr) {
+    for (int r = tid; r < nr; r += kThreads)
+      lse[r] = sm.l[r] > 0.f ? sm.m[r] + logf(sm.l[r]) : neg_inf;
   }
 }
 

@@ -21,6 +21,11 @@
 // K/V are never repeated in memory. Prefill buckets are any power of two
 // >= 16 and the ragged last tile is masked here, so nothing assumes the
 // TPU kernel's divisibility (_pick_block :67).
+//
+// For training, the caller may pass an lse buffer [B, H, S] fp32: each row
+// then also writes m + log(l), which the backward kernels
+// (flash_attention_bwd.cu) use to re-derive P. The serving path passes
+// null and pays nothing for it.
 
 #include "attention_tile.cuh"
 
@@ -35,8 +40,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
-                 float scale) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int S, int H, int Hkv, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
   const int s0 = blockIdx.x * kRows;
@@ -53,13 +58,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t stride = static_cast<size_t>(Hkv) * D;
   const size_t head0 = static_cast<size_t>(b) * S * stride +
                        static_cast<size_t>(kvh) * D;
+  float* lse_rows =
+      lse == nullptr
+          ? nullptr
+          : lse + (static_cast<size_t>(b) * H + h) * S + s0;
   picotron::attend_rows<D, true>(sm, nr, s0 + nr - 1, q, k + head0,
-                                 v + head0, o, stride, S, scale);
+                                 v + head0, o, stride, S, scale, lse_rows);
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   const int smem = static_cast<int>(picotron::smem_bytes<D>());
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -69,23 +78,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, H, Hkv, scale);
+      static_cast<float*>(lse), S, H, Hkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o: [B, S, H, D]; k, v: [B, S, Hkv, D]; bf16, contiguous; D in {64, 128}.
+// lse: null, or [B, H, S] fp32.
 extern "C" int picotron_flash_attention_fwd(const void* q, const void* k,
-                                            const void* v, void* o, int B,
-                                            int S, int H, int Hkv, int D,
-                                            float scale, void* stream) {
+                                            const void* v, void* o, void* lse,
+                                            int B, int S, int H, int Hkv,
+                                            int D, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, o, B, S, H, Hkv, scale, st);
+      return launch<64>(q, k, v, o, lse, B, S, H, Hkv, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, B, S, H, Hkv, scale, st);
+      return launch<128>(q, k, v, o, lse, B, S, H, Hkv, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

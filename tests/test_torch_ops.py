@@ -1,7 +1,8 @@
 """The PyTorch port's ops against the JAX package's, on the CPU.
 
-Every kernel of the port's serving path has a plain PyTorch version, which
-is what a CPU tensor runs. Here each plain version is held to the JAX
+Every kernel of the port's serving and training paths has a plain PyTorch
+version, which is what a CPU tensor runs (through the same autograd
+Function the card runs, for the backward kernels D, E and F). Here each plain version is held to the JAX
 function it replaces, on the same inputs made with numpy from a seed: the
 Pallas kernels run in interpret mode, as tests/test_pallas_kernels.py and
 tests/test_decode_kernel.py run them. Also pinned: the samplers' filter,
@@ -42,7 +43,9 @@ from picotron_tpu.ops.pallas.decode_attention import (
 from picotron_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash_attention,
 )
+from picotron_tpu.ops.pallas.flash_attention import flash_attention_with_lse
 from picotron_tpu.ops.pallas.rmsnorm import rms_norm_pallas
+from picotron_tpu.ops.rmsnorm import rms_norm as jax_rms_norm
 from picotron_tpu_torch import convert
 from picotron_tpu_torch.config import Config
 from picotron_tpu_torch.inference import kv_cache, sampling
@@ -100,6 +103,57 @@ def test_rmsnorm_plain_matches_pallas(dtype):
 
 
 # --------------------------------------------------------------------------- #
+# kernel D: RMSNorm backward
+# --------------------------------------------------------------------------- #
+
+
+def _rmsnorm_bwd_numpy(x, w, dy, eps):
+    """The Pallas ``_bwd_kernel`` formula (:46-55) in float64 numpy."""
+    x, w, dy = (np.asarray(a, np.float64) for a in (x, w, dy))
+    r = 1.0 / np.sqrt((x * x).mean(-1, keepdims=True) + eps)
+    xhat, dxhat = x * r, dy * w
+    dx = r * (dxhat - xhat * (dxhat * xhat).mean(-1, keepdims=True))
+    return dx, (dy * xhat).reshape(-1, x.shape[-1]).sum(0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_backward_matches_jax_vjp(dtype):
+    """The plain backward and the Function's CPU backward against jax.vjp
+    of the plain ``picotron_tpu.ops.rmsnorm.rms_norm`` (the Pallas
+    backward does not run under this jax) and the formula in numpy. fp32:
+    1e-5. bf16: within two bf16 rounding steps (2^-7 relative) -- the vjp
+    of the plain function rounds at its bf16 casts, the kernel's formula
+    stays in fp32 until the outputs."""
+    rng = np.random.default_rng(6)
+    eps = 1e-5
+    x, w = _rand(rng, 3, 10, 64), 1.0 + 0.1 * _rand(rng, 64)
+    dy = _rand(rng, 3, 10, 64)
+    if dtype == "float32":
+        (jx, tx), (jw, tw), (jdy, tdy) = ((jnp.asarray(a), torch.from_numpy(a))
+                                          for a in (x, w, dy))
+        tol = dict(rtol=1e-5, atol=1e-5)
+    else:
+        (jx, tx), (jw, tw), (jdy, tdy) = (_bf16(a) for a in (x, w, dy))
+        tol = dict(rtol=2 ** -7, atol=2 ** -7)
+    _, vjp = jax.vjp(lambda a, b: jax_rms_norm(a, b, eps), jx, jw)
+    jdx, jdw = (np.asarray(g, np.float32) for g in vjp(jdy))
+    ndx, ndw = _rmsnorm_bwd_numpy(tx.float(), tw.float(), tdy.float(), eps)
+    pdx, pdw = ka.rms_norm_bwd_plain(tx, tw, tdy, eps)
+    xg, wg = tx.clone().requires_grad_(True), tw.clone().requires_grad_(True)
+    out = ka.rms_norm(xg, wg, eps)
+    assert out.grad_fn is not None and "RMSNormFunction" in str(out.grad_fn)
+    out.backward(tdy)
+    for dx, dw in ((pdx, pdw), (xg.grad, wg.grad)):
+        assert dx.dtype == tx.dtype and dw.dtype == tw.dtype
+        np.testing.assert_allclose(dx.float().numpy(), jdx, **tol)
+        np.testing.assert_allclose(dw.float().numpy(), jdw,
+                                   rtol=tol["rtol"], atol=tol["atol"] * 30)
+        np.testing.assert_allclose(dx.float().numpy(), ndx, **tol)
+        np.testing.assert_allclose(dw.float().numpy(), ndw,
+                                   rtol=tol["rtol"], atol=tol["atol"] * 30)
+
+
+# --------------------------------------------------------------------------- #
 # kernel B: causal flash attention
 # --------------------------------------------------------------------------- #
 
@@ -132,6 +186,96 @@ def test_flash_attention_plain_matches_pallas(nkv, dtype):
     got = kb.flash_attention(tq, tk, tv, scale)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("S", [16, 130])
+def test_flash_attention_lse_matches_pallas(S):
+    """B's LSE output [B, H, S] against flash_attention_with_lse ([B, S, H])
+    in interpret mode, and the output beside it. fp32, 2e-5."""
+    rng = np.random.default_rng(7)
+    B, nh, nkv, D = 2, 4, 2, 16
+    q, k, v = _rand(rng, B, S, nh, D), _rand(rng, B, S, nkv, D), \
+        _rand(rng, B, S, nkv, D)
+    scale = D ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_lse = flash_attention_with_lse(
+            *(jnp.asarray(a) for a in (q, np.repeat(k, 2, 2),
+                                       np.repeat(v, 2, 2))), scale)
+    got_o, got_lse = kb.flash_attention_fwd(
+        *map(torch.from_numpy, (q, k, v)), scale, return_lse=True)
+    assert got_lse.shape == (B, nh, S) and got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(want_lse).transpose(0, 2, 1),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o),
+                               rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------------------- #
+# kernels E and F: flash-attention backward
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("S", [16, 48, 130])
+@pytest.mark.parametrize("nkv", [4, 2])
+def test_flash_attention_backward_matches_pallas_vjp(nkv, S):
+    """The plain backward (and the Function's CPU backward) against jax.vjp
+    of the Pallas flash_attention in interpret mode, on K/V repeated with
+    jnp.repeat on the JAX side: its dK/dV come back per repeated head and
+    are summed over each kv head's group, which is what the port's compact
+    dk/dv hold. Also against torch autograd of flash_attention_plain. fp32:
+    5e-5 (the Pallas tests' gradient tolerance)."""
+    rng = np.random.default_rng(10 + S + nkv)
+    B, nh, D = 2, 4, 16
+    g = nh // nkv
+    q, k, v = _rand(rng, B, S, nh, D), _rand(rng, B, S, nkv, D), \
+        _rand(rng, B, S, nkv, D)
+    do = _rand(rng, B, S, nh, D)
+    scale = D ** -0.5
+
+    def jax_loss_fn(q_, k_, v_):
+        kr, vr = jnp.repeat(k_, g, axis=2), jnp.repeat(v_, g, axis=2)
+        return jax_flash_attention(q_, kr, vr, scale, causal=True)
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_loss_fn, *map(jnp.asarray, (q, k, v)))
+        want = [np.asarray(a) for a in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = kb.flash_attention_fwd(tq, tk, tv, scale, return_lse=True)
+    plain = kb.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, scale)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = kb.flash_attention(*leaves, scale)
+    assert "FlashAttentionFunction" in str(out.grad_fn)
+    out.backward(tdo)
+    ref = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    kb.flash_attention_plain(*ref, scale).backward(tdo)
+    tol = dict(rtol=5e-5, atol=5e-5)
+    for i, name in enumerate("qkv"):
+        for got in (plain[i], leaves[i].grad, ref[i].grad):
+            assert got.shape == (tq, tk, tv)[i].shape
+            np.testing.assert_allclose(got.numpy(), want[i], err_msg=f"d{name}",
+                                       **tol)
+
+
+def test_flash_attention_backward_rounds_like_pallas_in_bf16():
+    """bf16 inputs: the plain backward rounds dS and P at the Pallas
+    bodies' points; against the Pallas vjp in interpret mode (same
+    rounding points) within 2e-2, the bf16 tolerance of the forward."""
+    rng = np.random.default_rng(21)
+    B, S, nh, D = 1, 32, 2, 16
+    q, k, v, do = (_rand(rng, B, S, nh, D) for _ in range(4))
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = map(_bf16, (q, k, v, do))
+    scale = D ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(
+            a, b, c, scale, causal=True, block_q=16, block_k=16), jq, jk, jv)
+        want = [np.asarray(a, np.float32) for a in vjp(jdo)]
+    o, lse = kb.flash_attention_fwd(tq, tk, tv, scale, return_lse=True)
+    got = kb.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, scale)
+    for a, w, name in zip(got, want, "qkv"):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=2e-2,
+                                   atol=2e-2, err_msg=f"d{name}")
 
 
 # --------------------------------------------------------------------------- #
@@ -299,15 +443,26 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
         raise AssertionError("plain version called for a non-CPU tensor")
 
     monkeypatch.setattr(ka, "rms_norm_plain", boom)
+    monkeypatch.setattr(ka, "rms_norm_bwd_plain", boom)
     monkeypatch.setattr(kb, "flash_attention_plain", boom)
+    monkeypatch.setattr(kb, "flash_attention_bwd_plain", boom)
     monkeypatch.setattr(kc, "flash_decode_attention_plain", boom)
     meta = dict(device="meta", dtype=torch.bfloat16)
     x = torch.empty(4, 64, **meta)
     with pytest.raises(ValueError, match="CUDA"):
         ka.rms_norm(x, torch.empty(64, **meta))
+    with pytest.raises(ValueError, match="CUDA"):  # kernel D
+        ka.rms_norm_bwd(x, torch.empty(64, **meta), x)
+    with pytest.raises(ValueError, match="CUDA"):  # under autograd
+        ka.rms_norm(x.requires_grad_(True), torch.empty(64, **meta))
     q = torch.empty(1, 16, 4, 64, **meta)
     with pytest.raises(ValueError, match="CUDA"):
         kb.flash_attention(q, q, q, 0.125)
+    lse = torch.empty(1, 4, 16, device="meta", dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):  # kernels E and F
+        kb.flash_attention_bwd(q, q, q, q, lse, q, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):  # B with its LSE
+        kb.flash_attention(q.requires_grad_(True), q, q, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         kc.flash_decode_attention(q, q, q, torch.empty(1, device="meta",
                                                        dtype=torch.int32),
@@ -318,6 +473,11 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
         "picotron_tpu_torch.ops.kernels.build.library", boom)
     x = torch.zeros(2, 64)
     assert ka.rms_norm(x, torch.ones(64)).shape == x.shape
+    xg = torch.ones(2, 64, requires_grad=True)
+    ka.rms_norm(xg, torch.ones(64)).sum().backward()
+    q = torch.ones(1, 16, 2, 8, requires_grad=True)
+    kb.flash_attention(q, q, q).sum().backward()
+    assert xg.grad.shape == xg.shape and q.grad.shape == q.shape
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -328,7 +488,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "picotron_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 20
+    for name in ("train.py", "train_step.py", "data.py",
+                 os.path.join("ops", "cross_entropy.py")):
+        assert os.path.join(REPO, "picotron_tpu_torch", name) in files
     for path in files:
         with open(path) as f:
             hits = pat.findall(f.read())
