@@ -14,9 +14,9 @@ caller passes ``device="cpu"``.
 Options that select a path this port does not have yet are refused, so a
 config never runs silently without the behaviour it asks for:
 
-- inference options (int8 weights or cache, paged KV, speculation,
-  overlap, mixed dispatch, dp sharding) when set to anything but their
-  default, at load;
+- inference options (paged KV and its ``hot_bf16`` page policy,
+  speculation, overlap, mixed dispatch, dp sharding) when set to anything
+  but their default, at load;
 - for training, ``Config.check_trainable`` (called by the trainer): any
   parallelism (dp, tp, pp or cp above 1, zero1, fsdp), ``remat``
   ``"save_attn"`` and ``"offload"``, HF datasets, checkpoint saving,
@@ -170,13 +170,17 @@ class InferenceConfig:
     # the masked whole-window reference (kv_cache.decode_attention);
     # "flash" = the length-aware flash-decode kernel.
     attend_impl: str = "dense"
+    # Weight storage: "bf16" = the dense tree; "int8" = per-output-channel
+    # int8 matmul weights (llama.quantize_params) served through kernel G.
+    weight_dtype: str = "bf16"
+    # KV-cache storage: "auto" = the model dtype; "int8" = absmax int8 rows
+    # with fp32 per-row scales (kv_cache.py), read by C's int8 variant.
+    kv_cache_dtype: str = "auto"
 
 
 # Inference options of the JAX package that this port does not implement
 # yet, with the only value it accepts.
 _UNPORTED_INFERENCE = {
-    "weight_dtype": "bf16",
-    "kv_cache_dtype": "auto",
     "kv_layout": "contiguous",
     "kv_page_policy": "uniform",
     "role": "both",
@@ -323,6 +327,16 @@ class Config:
             raise ValueError(
                 f"unknown inference.attend_impl {inf.attend_impl!r} "
                 "(dense|flash)")
+        if inf.weight_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"unknown inference.weight_dtype {inf.weight_dtype!r} "
+                "(bf16|int8) — set 'int8' for per-channel quantized "
+                "weights served through the fused dequant matmul, or "
+                "keep the 'bf16' full-precision default")
+        if inf.kv_cache_dtype not in ("auto", "int8"):
+            raise ValueError(
+                f"unknown inference.kv_cache_dtype {inf.kv_cache_dtype!r} "
+                "(auto|int8)")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

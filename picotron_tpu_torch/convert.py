@@ -13,6 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from picotron_tpu_torch.ops.quant_matmul import is_quant_weight
 from picotron_tpu_torch.train_step import param_leaves
 
 
@@ -31,8 +32,12 @@ def params_from_jax(tree: dict, device=None,
                     dtype: torch.dtype | None = None) -> dict[str, Any]:
     """A JAX parameter tree of numpy arrays -> the port's parameter dict
     (nested like the input), on ``device`` (default CPU), cast to
-    ``dtype`` when given."""
+    ``dtype`` when given. A quantized leaf pair ``{"q": int8, "s": fp32}``
+    (``llama.quantize_params``) is one leaf, not a subtree to cast: its
+    tensors keep their dtypes whatever ``dtype`` asks for."""
     device = torch.device(device if device is not None else "cpu")
+    if is_quant_weight(tree):
+        return {k: _to_tensor(v, device, None) for k, v in tree.items()}
     return {k: (params_from_jax(v, device, dtype) if isinstance(v, dict)
                 else _to_tensor(v, device, dtype))
             for k, v in tree.items()}
@@ -41,7 +46,8 @@ def params_from_jax(tree: dict, device=None,
 def params_to_jax(params: dict) -> dict[str, Any]:
     """The port's parameter dict -> a tree of numpy arrays for the JAX
     package. bf16 tensors come back as float32 (exact: every bf16 value
-    is a float32 value), since numpy has no bf16 of its own."""
+    is a float32 value), since numpy has no bf16 of its own; a quantized
+    pair keeps its int8 values and fp32 scales."""
     def conv(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

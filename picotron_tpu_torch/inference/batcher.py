@@ -33,6 +33,8 @@ import numpy as np
 import torch
 
 from picotron_tpu_torch.inference import sampling
+from picotron_tpu_torch.inference.kv_cache import cache_bytes
+from picotron_tpu_torch.models.llama import param_bytes
 
 
 @dataclass
@@ -131,6 +133,24 @@ class ContinuousBatcher:
     @property
     def busy(self) -> bool:
         return bool(self._pending) or any(s is not None for s in self._slots)
+
+    def stats(self) -> dict:
+        """Serving counters (the JAX batcher's ``/statz`` fields that the
+        port has), with the resident bytes of the weights and the cache
+        that int8 storage shrinks."""
+        return {
+            "decode_dispatches": self.decode_dispatches,
+            "prefill_dispatches": self.prefill_dispatches,
+            "generated_tokens": self.generated_tokens,
+            "queued": len(self._pending),
+            "active_slots": sum(s is not None for s in self._slots),
+            "slots": len(self._slots),
+            "weight_dtype": self.engine.weight_dtype,
+            "weight_bytes": param_bytes(self.params),
+            "kv_cache_dtype": str(self.engine.cache_dtype).removeprefix(
+                "torch."),
+            "cache_bytes": cache_bytes(self._cache),
+        }
 
     def take_results(self) -> dict:
         """Finished results since the last call: {uid: GenerationResult}."""

@@ -14,6 +14,13 @@ Port of the serving subset of ``picotron_tpu/inference/engine.py``:
   mask derived from the cache lengths) stays on the device, so the host
   reads results once per block.
 
+Weights and cache come in two storage forms each: ``weight_dtype``
+"bf16" (the dense tree) or "int8" (the tree from
+``llama.quantize_params``: every matmul site dispatches on its leaf, so
+the engine only records the choice), and ``cache_dtype`` full precision
+or int8 (``kv_cache.py``: quantized on write, one-shot prefill blocks
+quantized by ``_pack_kv`` before ``insert``).
+
 The JAX package compiles each of these as one jitted program with
 ``lax.scan`` over layers and steps; here they are Python loops that
 launch kernels eagerly. There is no flash-to-dense fallback: a kernel
@@ -39,17 +46,22 @@ class InferenceEngine:
 
     ``slots`` is the decode batch width; ``max_seq_len`` bounds prompt +
     generated tokens per slot (default: ``max_position_embeddings``).
-    ``decode_block_len`` / ``prefill_chunk`` / ``attend_impl`` default from
-    ``cfg.inference``; keyword overrides win. ``device=None`` is the CUDA
-    card (and raises without one); pass ``device="cpu"`` for the plain
-    PyTorch path on the CPU.
+    ``decode_block_len`` / ``prefill_chunk`` / ``attend_impl`` /
+    ``weight_dtype`` default from ``cfg.inference``; keyword overrides win.
+    ``cache_dtype`` ("int8", ``torch.int8``, or a full-precision torch
+    dtype) wins over ``inference.kv_cache_dtype`` when given, so a caller
+    can turn cache quantization off as well as on. ``device=None`` is the
+    CUDA card (and raises without one); pass ``device="cpu"`` for the
+    plain PyTorch path on the CPU.
     """
 
     def __init__(self, cfg: Config, device=None, *, slots: int = 8,
                  max_seq_len: int | None = None,
                  decode_block_len: int | None = None,
                  prefill_chunk: int | None = None,
-                 attend_impl: str | None = None):
+                 attend_impl: str | None = None,
+                 weight_dtype: str | None = None,
+                 cache_dtype=None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
         self.device = resolve_device(device)
         m, inf = self.cfg.model, self.cfg.inference
@@ -74,8 +86,25 @@ class InferenceEngine:
                     f"unknown attend_impl {attend_impl!r} (dense|flash)")
             inf.attend_impl = attend_impl
         self.attend_impl = inf.attend_impl
+        if weight_dtype is not None:
+            if weight_dtype not in ("bf16", "int8"):
+                raise ValueError(
+                    f"unknown weight_dtype {weight_dtype!r} (bf16|int8)")
+            inf.weight_dtype = weight_dtype
+        self.weight_dtype = inf.weight_dtype
         self._dt = torch_dtype(m.dtype)
-        self.cache_dtype = self._dt
+        if cache_dtype is None:
+            cache_dtype = inf.kv_cache_dtype
+        self.quantized = cache_dtype in ("int8", torch.int8)
+        if self.quantized:
+            self.cache_dtype = torch.int8
+        elif cache_dtype == "auto":
+            self.cache_dtype = self._dt
+        elif isinstance(cache_dtype, torch.dtype):
+            self.cache_dtype = cache_dtype
+        else:
+            raise ValueError(f"unknown cache_dtype {cache_dtype!r} (int8, "
+                             f"'auto' or a torch dtype)")
         # angle tables cover the whole cache window; decode gathers rows at
         # each slot's own offset
         self._cos, self._sin = precompute_rope(
@@ -86,9 +115,10 @@ class InferenceEngine:
 
     def init_cache(self) -> dict:
         """A fresh zeroed cache on the engine's device."""
-        return kv_cache.init_cache(self.cfg.model, self.slots,
-                                   self.max_seq_len, dtype=self.cache_dtype,
-                                   device=self.device)
+        return kv_cache.init_cache(
+            self.cfg.model, self.slots, self.max_seq_len,
+            dtype=None if self.quantized else self.cache_dtype,
+            device=self.device, quantized=self.quantized)
 
     def insert(self, cache: dict, kv: dict, slot: int, length: int) -> dict:
         """Park a prefill's blocks in ``slot`` (in place)."""
@@ -114,11 +144,20 @@ class InferenceEngine:
     def _tokens(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int32)).to(self.device)
 
+    def _pack_kv(self, K: torch.Tensor, V: torch.Tensor) -> dict:
+        """Prefill K/V blocks in the cache's storage form: quantized
+        (int8 values and scales) or cast to the cache dtype."""
+        if self.quantized:
+            qk, ks = kv_cache.quantize_kv(K)
+            qv, vs = kv_cache.quantize_kv(V)
+            return {"k": qk, "v": qv, "k_scale": ks, "v_scale": vs}
+        return {"k": K.to(self.cache_dtype), "v": V.to(self.cache_dtype)}
+
     @torch.no_grad()
     def prefill(self, params, prompt_ids) -> tuple:
         """One prompt through the full-sequence model. Returns (kv blocks
-        ``{"k", "v"}: [L, 1, S_bucket, Hkv, D]``, last-token logits
-        [1, V] fp32)."""
+        in cache storage form, ``{"k", "v"[, "k_scale", "v_scale"]}:
+        [L, 1, S_bucket, Hkv(, D)]``, last-token logits [1, V] fp32)."""
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -139,14 +178,17 @@ class InferenceEngine:
         # row before the LM-head matmul
         h_last = h[:, ids.size - 1: ids.size]
         last = llama.head_logits(params, h_last, cfg)[:, 0].float()
-        return {"k": torch.stack(ks), "v": torch.stack(vs)}, last
+        return self._pack_kv(torch.stack(ks), torch.stack(vs)), last
 
     def _layers_over_cache(self, params, cache, h, cos, sin, pos,
                            slots=slice(None)):
         """Run the layer stack on ``h`` against the cache rows of ``slots``,
-        writing each layer's new K/V from ``pos`` on."""
+        writing each layer's new K/V from ``pos`` on (an int8 cache's
+        chunk is written first, then attended in its dequantized form, as
+        in the JAX package)."""
         for i in range(self.cfg.model.num_hidden_layers):
-            lc = {"k": cache["k"][i, slots], "v": cache["v"][i, slots]}
+            lc = {name: t[i, slots] for name, t in cache.items()
+                  if name != "lengths"}
             h, _ = llama.decoder_layer(llama.layer_params(params, i), h, cos,
                                        sin, self.cfg, cache=lc, pos=pos)
         return h

@@ -17,8 +17,11 @@ RMSNorm and attention dispatch on the tensor's device: CUDA tensors go
 through the hand-written kernels (``ops/kernels``), CPU tensors through
 their plain versions; under autograd the kernels' ``autograd.Function``s
 run the backward kernels (D for RMSNorm, E and F for attention). The
-projections and the LM head are ``torch.matmul``, as the JAX package
-leaves them to XLA.
+projections and the LM head go through ``matmul``, which dispatches on
+the weight leaf's form: a plain tensor is ``torch.matmul`` (as the JAX
+package leaves it to XLA), a quantized ``{"q", "s"}`` pair
+(``quantize_params``, serving with ``inference.weight_dtype: "int8"``)
+kernel G.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from picotron_tpu_torch.config import Config, ModelConfig
+from picotron_tpu_torch.ops import quant_matmul as qmm
 from picotron_tpu_torch.ops.attention import sdpa
 from picotron_tpu_torch.ops.cross_entropy import (
     cross_entropy_fused,
@@ -42,6 +46,13 @@ from picotron_tpu_torch.ops.rope import apply_rope, precompute_rope
 from picotron_tpu_torch.utils import torch_dtype
 
 Params = dict[str, Any]
+
+# The matmul weights that inference.weight_dtype "int8" quantizes per
+# output channel: the seven decoder-layer projections, plus "lm_head" at
+# the top of the tree. The embedding (a gather) and the norms stay full
+# precision.
+QUANT_WEIGHT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
 
 def init_params(m: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random parameters with the JAX package's init laws, drawn on
@@ -137,9 +148,9 @@ def decoder_layer(lp: Params, h: torch.Tensor, cos, sin, cfg: Config,
     nh, nkv, D = m.num_attention_heads, m.num_key_value_heads, m.head_dim
     x = _norm(h, lp["attn_norm"], cfg)
     B, S, _ = x.shape
-    q = (x @ lp["wq"]).reshape(B, S, nh, D)
-    k = (x @ lp["wk"]).reshape(B, S, nkv, D)
-    v = (x @ lp["wv"]).reshape(B, S, nkv, D)
+    q = matmul(x, lp["wq"]).reshape(B, S, nh, D)
+    k = matmul(x, lp["wk"]).reshape(B, S, nkv, D)
+    v = matmul(x, lp["wv"]).reshape(B, S, nkv, D)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
@@ -149,17 +160,75 @@ def decoder_layer(lp: Params, h: torch.Tensor, cos, sin, cfg: Config,
         o = _attention(q, None, None, cfg, cache=cache, pos=pos)
     else:
         o = _attention(q, k, v, cfg)
-    h = h + o.reshape(B, S, nh * D) @ lp["wo"]
+    h = h + matmul(o.reshape(B, S, nh * D), lp["wo"])
     x = _norm(h, lp["mlp_norm"], cfg)
-    out = h + (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+    out = h + matmul(F.silu(matmul(x, lp["w_gate"])) * matmul(x, lp["w_up"]),
+                     lp["w_down"])
     if cache is not None:
         return out, cache
     return (out, (k, v)) if return_kv else out
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer leaves."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s slice of the stacked layer leaves (a quantized pair
+    slices both of its tensors)."""
+    return {name: ({"q": w["q"][i], "s": w["s"][i]}
+                   if qmm.is_quant_weight(w) else w[i])
+            for name, w in params["layers"].items()}
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w``, dispatching on the weight leaf's form: a tensor runs
+    the dense matmul; a quantized ``{"q": int8, "s": fp32}`` pair runs
+    ``quant_matmul`` (kernel G on the card), whose output follows
+    ``x.dtype``. (The JAX package's adapter-wrapped LoRA leaf is not
+    ported yet.)"""
+    if qmm.is_quant_weight(w):
+        return qmm.quant_matmul(x, w["q"], w["s"])
+    return x @ w
+
+
+def quantize_params(params: Params) -> Params:
+    """Every ``QUANT_WEIGHT_LEAVES`` weight and ``lm_head`` as a
+    per-output-channel int8 pair; the embedding and the norms pass
+    through. Eager and one layer at a time (the JAX package's
+    leaf-by-leaf rule keeps the scales bit-identical across paths; a
+    layer at a time bounds the fp32 transient to one layer's matrix), on
+    each leaf's own device. The caller drops the dense tree."""
+    def stack(w):
+        parts = [qmm.quantize_weight(w[i]) for i in range(w.shape[0])]
+        return {"q": torch.stack([p["q"] for p in parts]),
+                "s": torch.stack([p["s"] for p in parts])}
+
+    layers = {k: (stack(v) if k in QUANT_WEIGHT_LEAVES else v)
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers,
+            "lm_head": qmm.quantize_weight(params["lm_head"])}
+
+
+def dequantize_params(params: Params, dtype: torch.dtype) -> Params:
+    """The fake-quant reference tree: every quantized leaf dequantized to
+    ``dtype``. TESTS AND PARITY CHECKS ONLY: a dense engine fed this tree
+    carries the same quantization error as the int8 engine, so the two
+    differ only in the int8 plumbing."""
+    def deq(leaf):
+        if qmm.is_quant_weight(leaf):
+            return qmm.dequantize_weight(leaf["q"], leaf["s"], dtype)
+        return leaf
+
+    layers = {k: deq(v) for k, v in params["layers"].items()}
+    return {**params, "layers": layers, "lm_head": deq(params["lm_head"])}
+
+
+def param_bytes(params: Params) -> int:
+    """Bytes the parameter tree occupies (int8 values and fp32 scales
+    included): the ``weight_bytes`` that int8 weights roughly halve."""
+    def walk(node):
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        return node.numel() * node.element_size()
+
+    return walk(params)
 
 
 def layers_forward(stacked: Params, h: torch.Tensor, cos, sin,
@@ -223,8 +292,8 @@ def num_params(m: ModelConfig) -> int:
 
 
 def head_logits(params: Params, h: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """Final norm + untied LM head."""
-    return _norm(h, params["final_norm"], cfg) @ params["lm_head"]
+    """Final norm + untied LM head (int8 pair or tensor, via ``matmul``)."""
+    return matmul(_norm(h, params["final_norm"], cfg), params["lm_head"])
 
 
 def forward_logits(params: Params, tokens: torch.Tensor,

@@ -46,6 +46,8 @@ SIGNATURES = {
     "picotron_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
     "picotron_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _P],
+    "picotron_flash_decode_int8": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "picotron_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -29,6 +29,12 @@
 // lse[r]: the residual the training backward (flash_attention_bwd.cu)
 // re-derives P from.
 //
+// Where the keys and values come from is a template parameter, the tile
+// source: Bf16KV reads bf16 rows (kernels B and C); Int8KV reads int8 rows
+// and their fp32 per-row scales and dequantizes each row in registers,
+// int8 -> fp32 x scale, before it enters the tile (C's int8 variant). The
+// walk, the masks and the softmax are the same code for both.
+//
 // Nothing carries over between blocks, unlike the TPU grid that runs in
 // order on one core: each block loops over its own KV tiles.
 
@@ -90,20 +96,81 @@ __device__ __forceinline__ void store8(float* dst, const uint4& u) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
+// int8 bytes of w (lowest first) -> fp32, times the row's scale
+__device__ __forceinline__ void dequant4(uint32_t w, float sc, float* f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = static_cast<float>(static_cast<int8_t>(w >> (8 * i))) * sc;
+}
+
+// Tile sources. k and v point at key 0 of one head; consecutive keys are
+// stride elements apart. key_row fills one key's D values, value_chunk 8
+// values (chunk c) of one value row, both in fp32.
+struct Bf16KV {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  size_t stride;
+
+  template <int D>
+  __device__ __forceinline__ void key_row(int key, float* kr) const {
+    const uint4* kp =
+        reinterpret_cast<const uint4*>(k + static_cast<size_t>(key) * stride);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) unpack8(kp[c], &kr[c * 8]);
+  }
+  __device__ __forceinline__ void value_chunk(int key, int c,
+                                              float* f) const {
+    unpack8(*reinterpret_cast<const uint4*>(
+                v + static_cast<size_t>(key) * stride + c * 8),
+            f);
+  }
+};
+
+// int8 rows with one fp32 scale per (key, head): k_scale / v_scale point
+// at key 0's scale of the head, consecutive keys scale_stride apart.
+struct Int8KV {
+  const int8_t* k;
+  const int8_t* v;
+  const float* k_scale;
+  const float* v_scale;
+  size_t stride;
+  size_t scale_stride;
+
+  template <int D>
+  __device__ __forceinline__ void key_row(int key, float* kr) const {
+    const float sc = k_scale[static_cast<size_t>(key) * scale_stride];
+    const uint4* kp =
+        reinterpret_cast<const uint4*>(k + static_cast<size_t>(key) * stride);
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const uint4 u = kp[c];
+      dequant4(u.x, sc, &kr[c * 16]);
+      dequant4(u.y, sc, &kr[c * 16 + 4]);
+      dequant4(u.z, sc, &kr[c * 16 + 8]);
+      dequant4(u.w, sc, &kr[c * 16 + 12]);
+    }
+  }
+  __device__ __forceinline__ void value_chunk(int key, int c,
+                                              float* f) const {
+    const float sc = v_scale[static_cast<size_t>(key) * scale_stride];
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        v + static_cast<size_t>(key) * stride + c * 8);
+    dequant4(u.x, sc, f);
+    dequant4(u.y, sc, f + 4);
+  }
+};
+
 // Attend the block's nr rows (sm.off / sm.pos filled for r < nr by the
-// caller, before a __syncthreads) against keys [0, n_keys) of one head.
-// k and v point at key 0 of that head; consecutive keys are kv_stride
-// elements apart. max_pos is the highest position of any row (negative:
-// no row sees any key).
-template <int D, bool kRoundP>
-__device__ void attend_rows(Smem<D>& sm, int nr, int max_pos,
-                            const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, size_t kv_stride,
-                            int n_keys, float scale,
-                            float* __restrict__ lse = nullptr) {
-  constexpr int kChunks = D / 8;             // 16-byte chunks per row
+// caller, before a __syncthreads) against keys [0, n_keys) of one head,
+// read through the tile source kv. max_pos is the highest position of any
+// row (negative: no row sees any key).
+template <int D, bool kRoundP, class KV>
+__device__ void attend_rows_kv(Smem<D>& sm, int nr, int max_pos,
+                               const __nv_bfloat16* __restrict__ q,
+                               const KV& kv, __nv_bfloat16* __restrict__ o,
+                               int n_keys, float scale,
+                               float* __restrict__ lse = nullptr) {
+  constexpr int kChunks = D / 8;             // 8-value chunks per row
   constexpr int kRowStep = kThreads / D;     // rows between accumulators
   constexpr int kAcc = kRows / kRowStep;     // accumulators per thread
   static_assert(kThreads % D == 0, "D must divide the block");
@@ -137,19 +204,20 @@ __device__ void attend_rows(Smem<D>& sm, int nr, int max_pos,
     // 1. the tile
     for (int idx = tid; idx < kKeys * kChunks; idx += kThreads) {
       const int t = idx / kChunks, c = idx % kChunks;
-      const uint4 u =
-          t0 + t < n_keys
-              ? *reinterpret_cast<const uint4*>(
-                    v + static_cast<size_t>(t0 + t) * kv_stride + c * 8)
-              : make_uint4(0u, 0u, 0u, 0u);
-      store8(&sm.v[t][c * 8], u);
+      float f[8];
+      if (t0 + t < n_keys) {
+        kv.value_chunk(t0 + t, c, f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = 0.f;
+      }
+      float4* dst = reinterpret_cast<float4*>(&sm.v[t][c * 8]);
+      dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+      dst[1] = make_float4(f[4], f[5], f[6], f[7]);
     }
     float kr[D];
     if (key < n_keys) {
-      const uint4* kp = reinterpret_cast<const uint4*>(
-          k + static_cast<size_t>(key) * kv_stride);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) unpack8(kp[c], &kr[c * 8]);
+      kv.template key_row<D>(key, kr);
     } else {
 #pragma unroll
       for (int c = 0; c < D; ++c) kr[c] = 0.f;
@@ -226,6 +294,20 @@ __device__ void attend_rows(Smem<D>& sm, int nr, int max_pos,
     for (int r = tid; r < nr; r += kThreads)
       lse[r] = sm.l[r] > 0.f ? sm.m[r] + logf(sm.l[r]) : neg_inf;
   }
+}
+
+// The bf16 form kernels B and C call: keys and values of one head at k and
+// v, consecutive keys kv_stride elements apart.
+template <int D, bool kRoundP>
+__device__ void attend_rows(Smem<D>& sm, int nr, int max_pos,
+                            const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ o, size_t kv_stride,
+                            int n_keys, float scale,
+                            float* __restrict__ lse = nullptr) {
+  attend_rows_kv<D, kRoundP>(sm, nr, max_pos, q, Bf16KV{k, v, kv_stride}, o,
+                             n_keys, scale, lse);
 }
 
 template <int D>

@@ -490,7 +490,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     for name in ("train.py", "train_step.py", "data.py",
-                 os.path.join("ops", "cross_entropy.py")):
+                 os.path.join("ops", "cross_entropy.py"),
+                 os.path.join("ops", "quant_matmul.py"),
+                 os.path.join("ops", "kernels", "quant_matmul.py")):
         assert os.path.join(REPO, "picotron_tpu_torch", name) in files
     for path in files:
         with open(path) as f:
