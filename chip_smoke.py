@@ -16,7 +16,16 @@ Run from the root of a checkout. Phases, each of which must pass:
    The backward kernels' library yardstick is F.rms_norm and
    F.scaled_dot_product_attention under autograd, timed as forward +
    backward less forward; G's is aten's int8-weight matmul (or cuBLAS on a
-   bf16 copy of the weight), C-int8's SDPA over a dequantized copy;
+   bf16 copy of the weight), C-int8's SDPA over a dequantized copy; C's
+   paged variants (paged, paged int8, hot_bf16 mixed pages) at their
+   decode shape (8 slots, 16-row pages, 128 pages per slot, a shuffled
+   table whose slots share a prefix's pages and end in NULL entries,
+   lengths 0 to 2048) at head_dim 64 and 128, the chunk shape (S = 512 over
+   300 cached tokens), a GQA shape and page lengths 8 and 128, each with
+   SDPA over a window gathered outside the timing as its yardstick; and
+   three identities that must hold bit for bit (max |diff| = 0): paged C
+   over a shuffled table = contiguous C over the same rows, paged C-int8 =
+   C-int8, and mixed pages with every flag 0 (1) = paged C (paged C-int8);
 3. the serving path: SmolLM-1.7B at full width and depth (random weights
    from a fixed seed, bf16) behind InferenceEngine + ContinuousBatcher with
    ``attend_impl="flash"``, serving 8 requests (six greedy, two sampled;
@@ -29,14 +38,25 @@ Run from the root of a checkout. Phases, each of which must pass:
    which must serve on the card without being told to;
 4. the serving requests once more under torch.profiler: where the device
    time went, and the device's busy share of the wall time;
-5. the int8 serving path: config #4's model (Llama-2-7B at full width and
+5. the paged serving path: the SmolLM-1.7B model of phase 3 (8 slots,
+   window 2048, 16-row pages, the pool auto-sized, the radix prefix cache
+   on) serving a shared-prefix traffic of 8 requests (four under one
+   300-token system prompt, the first prompt once more, three unrelated
+   prompts; six greedy, two sampled) three times: uniform bf16 pages,
+   ``kv_cache_dtype: "int8"`` and ``kv_page_policy: "hot_bf16"``. Each run
+   must launch its own variant of C and no other (nor contiguous C), find
+   4 prefix hits and 1223 cached tokens, make at least 4 copy-on-writes,
+   and pass phase 3's greedy gate; the hot_bf16 run once more under the
+   profiler, then the generate command line with ``--kv-layout paged
+   --kv-page-policy hot_bf16``, on the card by default;
+6. the int8 serving path: config #4's model (Llama-2-7B at full width and
    depth, random weights from a fixed seed quantized on the card) with
    ``weight_dtype`` and ``kv_cache_dtype`` "int8", serving the same 8
    requests, under the same checks; every product runs through G and every
    cache attend through C's int8 variant, and its profile must show no
    library GEMM or attention kernel; then the generate command line with
    ``--weight-dtype int8 --kv-cache-dtype int8``;
-6. the training path: config #2's ``model`` and ``training`` sections on a
+7. the training path: config #2's ``model`` and ``training`` sections on a
    single device (full-width, 24-layer SmolLM-1.7B, seq 2048 x micro-batch
    4, remat "full", AdamW) from a fixed seed over the synthetic loader.
    First the gate: one step's loss and gradients through the kernels must
@@ -46,8 +66,9 @@ Run from the root of a checkout. Phases, each of which must pass:
    kernel launched. Then the ``picotron_tpu_torch.train`` command line on
    config #1, on the card by default, and one training step under
    torch.profiler;
-7. a ``{"kernels": [...]}`` line with each kernel's launches on its own
-   path (and on each path: ``serve``, ``serve_int8``, ``train``), then
+8. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+   path (and on each path: ``serve``, ``serve_paged``,
+   ``serve_paged_int8``, ``serve_mixed``, ``serve_int8``, ``train``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
@@ -78,6 +99,21 @@ DEVICE = "cuda"
 SEED = 0
 NEW_TOKENS = 64
 PROMPT_LENS = (24, 48, 130, 260, 400, 600, 777, 900)
+# the paged phase's traffic: a system prompt under four suffixes, the first
+# prompt again, three unrelated prompts (SAMPLED as above)
+SYSTEM_LEN = 300
+SUFFIX_LENS = (24, 48, 130, 260)
+UNRELATED_LENS = (400, 777, 900)
+PAGE_LEN = 16
+# what the radix cache must find: three hits on the system prompt and the
+# repeated prompt, which is shared up to one token short of its end
+PREFIX_HITS = 4
+PREFIX_CACHED = 3 * SYSTEM_LEN + SYSTEM_LEN + SUFFIX_LENS[0] - 1
+MIN_COW = 4
+# (path, kv_cache_dtype, kv_page_policy) of the paged phase's three runs
+PAGED_RUNS = (("serve_paged", "auto", "uniform"),
+              ("serve_paged_int8", "int8", "uniform"),
+              ("serve_mixed", "auto", "hot_bf16"))
 SAMPLED = (3, 6)  # request indices drawn at temperature 0.8, top-p 0.9
 LOGIT_MARGIN = 0.3  # greedy token vs the reference's top logit (see phase 3)
 RTOL = ATOL = 2e-2  # kernel vs plain version in bf16 (see _check)
@@ -282,6 +318,7 @@ def _kernel_checks(torch, F) -> dict:
                main=(B, S, nkv) == (8, 1, 32),
                variant="d128" if D == 128 else None)
     _int8_kernel_checks(torch, F, randn, record)
+    _paged_kernel_checks(torch, F, randn, record)
     _training_kernel_checks(torch, F, randn, record)
     return records
 
@@ -372,6 +409,165 @@ def _int8_kernel_checks(torch, F, randn, record) -> None:
                _bound(nbytes, 4 * D * nh * visible),
                main=(B, S, nkv) == (8, 1, 32))
         del q, kq, vq, ks, vs, kt, vt, qt
+        torch.cuda.empty_cache()
+
+
+def _paged_table(np, rng, lens, page_len: int, max_pages: int,
+                 shared: int) -> tuple:
+    """A block table over a shuffled pool: every slot's first ``shared``
+    pages (fewer if it holds fewer) are one set of pages (a common prefix
+    under every slot), the rest its own; the pool ids come in a random
+    order and entries past a slot's pages are the NULL page 0. Returns
+    (tables [B, max_pages] int32, pool pages, the rows each page must
+    provide: {page: the most rows any slot reads from it})."""
+    counts = [-(-L // page_len) for L in lens]
+    n = min(shared, max(counts)) + sum(max(0, c - shared) for c in counts)
+    ids = (rng.permutation(n) + 1).tolist()
+    common = [ids.pop() for _ in range(min(shared, max(counts)))]
+    tables = np.zeros((len(lens), max_pages), np.int32)
+    need = {}
+    for b, (L, c) in enumerate(zip(lens, counts)):
+        for j in range(c):
+            pid = common[j] if j < shared else ids.pop()
+            tables[b, j] = pid
+            need[pid] = max(need.get(pid, 0), min(page_len, L - j * page_len))
+    return tables, n + 1, need
+
+
+def _paged_kernel_checks(torch, F, randn, record) -> None:
+    """Phase 2, C's paged variants: each against its plain version at the
+    decode shape (head_dim 64 and 128), the chunk shape, a GQA shape and
+    page lengths 8 and 128, with SDPA over the gathered window as the
+    yardstick; and the three identities with the contiguous variants,
+    which must hold bit for bit."""
+    import numpy as np
+
+    from picotron_tpu_torch.inference.kv_cache import quantize_kv
+    from picotron_tpu_torch.ops.kernels import decode_attention as kc
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    T = 2048
+    lens8 = [0, 1, 17, 128, 129, 700, 1500, 2048]
+    # (B, S, H, Hkv, D, page_len, lengths, main, variant)
+    for B, S, nh, nkv, D, pl, lens, main, variant in (
+            (8, 1, 32, 32, 64, PAGE_LEN, lens8, True, None),
+            (8, 1, 32, 32, 128, PAGE_LEN, lens8, True, "d128"),
+            (1, 512, 32, 32, 64, PAGE_LEN, [300 + 512], False, None),
+            (8, 1, 32, 8, 64, PAGE_LEN, lens8, False, None),
+            (8, 1, 32, 32, 64, 8, lens8, False, None),
+            (8, 1, 32, 32, 64, 128, lens8, False, None)):
+        maxp = T // pl
+        tables, P, need = _paged_table(np, rng, lens, pl, maxp,
+                                       shared=max(1, 128 // pl))
+        bt = torch.tensor(tables, device=dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = randn(B, S, nh, D)
+        k, v = randn(P, pl, nkv, D), randn(P, pl, nkv, D)
+        kq, ks = quantize_kv(randn(P, pl, nkv, D))
+        vq, vs = quantize_kv(randn(P, pl, nkv, D))
+        flags = rng.integers(0, 2, P).astype(np.int32)
+        flags[0] = 0
+        pq = torch.tensor(flags, device=dev)
+        scale = D ** -0.5
+        live = lengths > 0
+        shape = {"B": B, "S": S, "H": nh, "Hkv": nkv, "D": D,
+                 "page_len": pl, "max_pages": maxp, "pool_pages": P,
+                 "lengths": lens}
+        name = f"B={B} S={S} H={nh} Hkv={nkv} D={D} page_len={pl}"
+
+        # the identities, bit for bit
+        paged = kc.flash_decode_attention(q, k, v, lengths, scale,
+                                          block_tables=bt)
+        paged8 = kc.flash_decode_attention(q, kq, vq, lengths, scale, ks, vs,
+                                           block_tables=bt)
+        gk, gv = kc.gather_window(k, bt), kc.gather_window(v, bt)
+        same = {
+            "paged == contiguous C": (paged, kc.flash_decode_attention(
+                q, gk, gv, lengths, scale)),
+            "paged int8 == C-int8": (paged8, kc.flash_decode_attention(
+                q, kc.gather_window(kq, bt), kc.gather_window(vq, bt),
+                lengths, scale, kc.gather_window(ks, bt),
+                kc.gather_window(vs, bt))),
+        }
+        for flag, want in ((0, paged), (1, paged8)):
+            same[f"mixed, flags {flag} == paged{' int8' if flag else ''}"] = (
+                kc.flash_decode_attention(
+                    q, k, v, lengths, scale, ks, vs, block_tables=bt,
+                    k_quant=kq, v_quant=vq,
+                    page_quant=torch.full_like(pq, flag)), want)
+        diffs = {key: float((a.float() - b.float()).abs().max())
+                 for key, (a, b) in same.items()}
+        print(json.dumps({"identities": name, "max_abs_diff": diffs}),
+              flush=True)
+        if any(d != 0.0 for d in diffs.values()):
+            raise AssertionError(f"paged identities broken at {name}: "
+                                 f"{diffs}")
+        del same, gk, gv
+
+        # the yardstick's window: gathered (and dequantized) outside the
+        # timing, GQA heads repeated, masked by position
+        g = nh // nkv
+        pos_q = lengths[:, None] - S + torch.arange(S, device=dev)[None]
+        amask = (torch.arange(maxp * pl, device=dev)[None, None]
+                 <= pos_q[:, :, None])[:, None]  # [B, 1, S, T]
+        qt = q.transpose(1, 2).contiguous()
+        rowflag = pq[bt.long()].repeat_interleave(pl, 1)[..., None, None]
+
+        def sdpa_of(kw, vw):
+            kt, vt = (t.to(torch.bfloat16).repeat_interleave(g, 2)
+                      .transpose(1, 2).contiguous() for t in (kw, vw))
+            return lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask, scale=scale)
+
+        deq_k = kc.gather_window(kq, bt).float() * kc.gather_window(
+            ks, bt)[..., None]
+        deq_v = kc.gather_window(vq, bt).float() * kc.gather_window(
+            vs, bt)[..., None]
+        visible = sum(max(0, min(L - S + s + 1, maxp * pl)) for L in lens
+                      for s in range(S))
+        io_bytes = 2 * B * S * nh * D * 2 + B * maxp * 4 + B * 4
+
+        def kv_bytes(row_bytes):  # each needed pool row read once
+            return sum(rows * nkv * row_bytes(pid)
+                       for pid, rows in need.items())
+
+        for kern, run, plain, lib, row_bytes in (
+                (kc.KERNEL_PAGED,
+                 lambda: kc.flash_decode_attention(q, k, v, lengths, scale,
+                                                   block_tables=bt),
+                 lambda: kc.flash_decode_attention_paged_plain(
+                     q, k, v, lengths, scale, bt),
+                 sdpa_of(kc.gather_window(k, bt), kc.gather_window(v, bt)),
+                 lambda pid: 2 * D * 2),
+                (kc.KERNEL_PAGED_INT8,
+                 lambda: kc.flash_decode_attention(q, kq, vq, lengths, scale,
+                                                   ks, vs, block_tables=bt),
+                 lambda: kc.flash_decode_attention_paged_int8_plain(
+                     q, kq, vq, lengths, scale, ks, vs, bt),
+                 sdpa_of(deq_k, deq_v),
+                 lambda pid: 2 * (D + 4)),
+                (kc.KERNEL_MIXED,
+                 lambda: kc.flash_decode_attention(
+                     q, k, v, lengths, scale, ks, vs, block_tables=bt,
+                     k_quant=kq, v_quant=vq, page_quant=pq),
+                 lambda: kc.flash_decode_attention_mixed_plain(
+                     q, k, v, lengths, scale, kq, vq, ks, vs, bt, pq),
+                 sdpa_of(torch.where(rowflag != 0, deq_k,
+                                     kc.gather_window(k, bt).float()),
+                         torch.where(rowflag != 0, deq_v,
+                                     kc.gather_window(v, bt).float())),
+                 lambda pid: 2 * (D + 4) if flags[pid] else 2 * D * 2)):
+            err = _check(f"{kern.name} {name}", run(), plain(), mask=live)
+            record(kern, shape, err, _time_ms(run), _time_ms(plain),
+                   _time_ms(lib),
+                   _bound(kv_bytes(row_bytes) + io_bytes,
+                          4 * D * nh * visible),
+                   main=main, variant=variant,
+                   library="F.scaled_dot_product_attention over the "
+                           "gathered window")
+            del lib
+        del q, k, v, kq, vq, ks, vs, deq_k, deq_v, amask, qt, rowflag
         torch.cuda.empty_cache()
 
 
@@ -684,6 +880,158 @@ def _serve_phase(torch, np, card, config: str, label: str, int8: bool,
     return counts
 
 
+def _paged_requests(np, vocab: int, tag: str) -> list:
+    """The paged phase's 8 requests: r0-r3 one ``SYSTEM_LEN``-token system
+    prompt under suffixes of ``SUFFIX_LENS`` tokens, r4 r0's prompt again,
+    r5-r7 prompts of ``UNRELATED_LENS`` tokens; ``NEW_TOKENS`` each,
+    ``SAMPLED`` at temperature 0.8 and top-p 0.9. The suffixes start with
+    four different tokens and the unrelated prompts with tokens no other
+    prompt starts with, so the radix cache's matches are exactly the
+    system prompt and the repeated prompt."""
+    from picotron_tpu_torch.inference.batcher import Request
+
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(1, vocab, SYSTEM_LEN).tolist()
+    firsts = rng.choice(np.arange(1, vocab), 8, replace=False)
+    firsts = [int(t) for t in firsts if t != system[0]][:7]
+    prompts = [system + [firsts[i]]
+               + rng.integers(1, vocab, n - 1).tolist()
+               for i, n in enumerate(SUFFIX_LENS)]
+    prompts.append(list(prompts[0]))
+    prompts += [[firsts[4 + i]] + rng.integers(1, vocab, n - 1).tolist()
+                for i, n in enumerate(UNRELATED_LENS)]
+    return [Request(f"{tag}{i}", p, max_new_tokens=NEW_TOKENS,
+                    temperature=0.8 if i in SAMPLED else 0.0,
+                    top_p=0.9 if i in SAMPLED else 1.0)
+            for i, p in enumerate(prompts)]
+
+
+def _paged_serve_phase(torch, np, card, paths, all_kernels) -> dict:
+    """Phase 5: SmolLM-1.7B on the paged layout, one run per entry of
+    ``PAGED_RUNS`` on one set of weights. Every kernel's count is set to 0
+    just before each run and read just after; returns those counts by
+    path. Each run must give every request its full budget of in-vocabulary
+    tokens, launch each kernel of its path (``paths``) and no other, find
+    the expected prefix hits, cached tokens and copy-on-writes, and pass
+    the greedy gate. The hot_bf16 run goes once more under the profiler;
+    then the generate command line serves the paged hot_bf16 layout."""
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.tools import generate
+
+    base = Config.from_json(CONFIG)
+    params = llama.init_params(base.model, seed=SEED,
+                               device=torch.device(DEVICE))
+    m = base.model
+    by_path = {}
+    for path, kv_dtype, policy in PAGED_RUNS:
+        cfg = Config.from_json(CONFIG)
+        cfg.inference.kv_layout = "paged"
+        cfg.inference.kv_page_len = PAGE_LEN
+        cfg.inference.kv_num_pages = 0
+        cfg.inference.prefix_cache = True
+        cfg.inference.kv_cache_dtype = kv_dtype
+        cfg.inference.kv_page_policy = policy
+        t0 = time.perf_counter()
+        engine = InferenceEngine(cfg, DEVICE, slots=8, attend_impl="flash")
+        print(f"engine ({path}): {m.name} L={m.num_hidden_layers} "
+              f"H={m.hidden_size} window={engine.max_seq_len}, "
+              f"slots={engine.slots} block={engine.decode_block_len} "
+              f"prefill_chunk={engine.prefill_chunk} attend=flash, paged: "
+              f"page_len={engine.page_len} pages={engine.num_pages} "
+              f"kv={str(engine.cache_dtype).removeprefix('torch.')} "
+              f"policy={engine.kv_page_policy}, built in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        ContinuousBatcher(engine, params, seed=SEED).run(
+            [Request("warm", list(range(1, 25)), max_new_tokens=2)])
+        requests = _paged_requests(np, m.vocab_size, "r")
+        batcher = ContinuousBatcher(engine, params, seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in all_kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        results = batcher.run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in all_kernels}
+        launches = {kern.name: counts[kern.name] for kern in paths[path]}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        by_path[path] = counts
+        for r in requests:
+            res = results[r.uid]
+            if (len(res.tokens) != NEW_TOKENS
+                    or res.finish_reason != "length"
+                    or not all(0 <= t < m.vocab_size for t in res.tokens)):
+                raise AssertionError(f"{path} {r.uid}: {len(res.tokens)} "
+                                     f"tokens, {res.finish_reason}")
+        idle = [name for name, n in launches.items() if n == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on {path}: {idle}")
+        stray = {k: n for k, n in counts.items() if n and k not in launches}
+        if stray:
+            raise AssertionError(f"kernels of another path launched on "
+                                 f"{path}: {stray}")
+        st = batcher.stats()
+        if (st["prefix_hits"], st["prefix_cached_tokens"]) != (
+                PREFIX_HITS, PREFIX_CACHED) or st["cow_copies"] < MIN_COW:
+            raise AssertionError(
+                f"{path}: prefix hits {st['prefix_hits']} (want "
+                f"{PREFIX_HITS}), cached tokens "
+                f"{st['prefix_cached_tokens']} (want {PREFIX_CACHED}), "
+                f"copy-on-writes {st['cow_copies']} (want >= {MIN_COW})")
+        gaps = {r.uid: _greedy_agrees(torch, llama, params, engine.cfg,
+                                      results[r.uid])
+                for i, r in enumerate(requests) if i not in SAMPLED}
+        ttft = sorted(results[r.uid].ttft_s for r in requests)
+        decode_tokens = batcher.generated_tokens - len(requests)
+        print(json.dumps({
+            "main_path": f"SmolLM-1.7B {path}", "card": card,
+            "requests": len(requests),
+            "prompt_lens": [len(r.prompt) for r in requests],
+            "new_tokens_each": NEW_TOKENS, "wall_s": wall,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+            "decode_tokens_per_s": decode_tokens / batcher.decode_seconds,
+            "tokens_per_s": batcher.generated_tokens / wall,
+            "decode_dispatches": batcher.decode_dispatches,
+            "prefill_dispatches": batcher.prefill_dispatches,
+            **{k: st[k] for k in (
+                "kv_cache_dtype", "cache_bytes", "kv_page_len",
+                "kv_pages_total", "kv_pages_live", "kv_pages_shared",
+                "kv_pages_quant", "prefix_queries", "prefix_hits",
+                "prefix_hit_rate", "prefix_cached_tokens", "cow_copies",
+                "radix_evictions")},
+            "kv_page_policy": policy, "peak_mem_gib": peak_gib,
+            "launches": launches,
+            "greedy_max_logit_gap": max(gaps.values()),
+            "greedy_logit_gaps": gaps}), flush=True)
+        if policy == "hot_bf16":
+            _profile(torch, lambda: ContinuousBatcher(
+                engine, params, seed=SEED).run(
+                    _paged_requests(np, m.vocab_size, "p")), path)
+        del engine, batcher, results
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    prompt = ",".join(str(i) for i in range(1, 41))
+    rc = generate.main(["--config", CONFIG, "--random-init", "--seed", "1",
+                        "--prompt-ids", prompt, "--prompt-ids",
+                        prompt + ",5,27,38", "--max-new-tokens", "8",
+                        "--slots", "2", "--attend-impl", "flash",
+                        "--kv-layout", "paged",
+                        "--kv-page-policy", "hot_bf16"])
+    if rc != 0:
+        raise AssertionError(f"generate CLI (paged hot_bf16) exited {rc}")
+    print(f"generate CLI (paged hot_bf16) passed in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def _rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -839,6 +1187,9 @@ def main() -> int:
         KERNELS,
         SERVING_INT8_KERNELS,
         SERVING_KERNELS,
+        SERVING_MIXED_KERNELS,
+        SERVING_PAGED_INT8_KERNELS,
+        SERVING_PAGED_KERNELS,
         TRAINING_KERNELS,
         build,
     )
@@ -862,22 +1213,29 @@ def main() -> int:
     by_path = {"serve": _serve_phase(torch, np, card, CONFIG,
                                      "SmolLM-1.7B serve", False,
                                      SERVING_KERNELS, KERNELS)}
-    # 5. the int8 serving path: Llama-2-7B, int8 weights and KV cache
+    # 5. the paged serving path, three page storages
+    paths = {"serve": SERVING_KERNELS,
+             "serve_paged": SERVING_PAGED_KERNELS,
+             "serve_paged_int8": SERVING_PAGED_INT8_KERNELS,
+             "serve_mixed": SERVING_MIXED_KERNELS,
+             "serve_int8": SERVING_INT8_KERNELS,
+             "train": TRAINING_KERNELS}
+    by_path.update(_paged_serve_phase(torch, np, card, paths, KERNELS))
+    # 6. the int8 serving path: Llama-2-7B, int8 weights and KV cache
     by_path["serve_int8"] = _serve_phase(torch, np, card, CONFIG_7B,
                                          "Llama-2-7B serve int8", True,
                                          SERVING_INT8_KERNELS, KERNELS)
 
-    # 6. the training path at full width and depth
+    # 7. the training path at full width and depth
     by_path["train"] = _train_phase(torch, card, TRAINING_KERNELS,
                                     KERNELS)
 
-    # 7. the closing lines: each kernel's launches on its own path (the
-    # first path that runs it: serving for A, B, C; int8 serving for
-    # C-int8 and G; training for D, E, F), and on each path
+    # 8. the closing lines: each kernel's launches on its own path (the
+    # first path that runs it: serving for A, B, C; each paged run for its
+    # variant of C; int8 serving for C-int8 and G; training for D, E, F),
+    # and on each path
     own = {}
-    for path, path_kernels in (("serve", SERVING_KERNELS),
-                               ("serve_int8", SERVING_INT8_KERNELS),
-                               ("train", TRAINING_KERNELS)):
+    for path, path_kernels in paths.items():
         for k in path_kernels:
             own.setdefault(k.name, path)
     kernels = [{"name": k.name, "route": k.route, "source": k.source,

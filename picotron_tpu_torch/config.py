@@ -14,9 +14,9 @@ caller passes ``device="cpu"``.
 Options that select a path this port does not have yet are refused, so a
 config never runs silently without the behaviour it asks for:
 
-- inference options (paged KV and its ``hot_bf16`` page policy,
-  speculation, overlap, mixed dispatch, dp sharding) when set to anything
-  but their default, at load;
+- inference options (disaggregation roles, speculation, overlap, mixed
+  dispatch, on-device sampling, dp sharding) when set to anything but
+  their default, at load;
 - for training, ``Config.check_trainable`` (called by the trainer): any
   parallelism (dp, tp, pp or cp above 1, zero1, fsdp), ``remat``
   ``"save_attn"`` and ``"offload"``, HF datasets, checkpoint saving,
@@ -176,13 +176,34 @@ class InferenceConfig:
     # KV-cache storage: "auto" = the model dtype; "int8" = absmax int8 rows
     # with fp32 per-row scales (kv_cache.py), read by C's int8 variant.
     kv_cache_dtype: str = "auto"
+    # KV memory layout: "contiguous" = every slot owns a max_seq_len strip;
+    # "paged" = block-table indirection over a global pool of fixed-size
+    # pages (inference/paged_kv.py) with refcounted prefix sharing and
+    # copy-on-write, so the cache holds live tokens only and a shared
+    # prompt prefix is stored (and prefilled) once.
+    kv_layout: str = "contiguous"
+    # Rows per KV page (paged layout only); a power of two >= 8.
+    kv_page_len: int = 16
+    # Pool size in pages (paged layout only). 0 = auto: one reserved NULL
+    # page + slots * ceil(max_seq_len / kv_page_len), the contiguous
+    # layout's capacity.
+    kv_num_pages: int = 0
+    # Radix prefix cache (paged layout only): prompt pages stay in a
+    # token-keyed trie after prefill; a new request shares its longest
+    # cached prefix and prefills only the rest. False = paging, no sharing.
+    prefix_cache: bool = True
+    # Per-page storage policy (paged layout only): "uniform" = every page
+    # read as kv_cache_dtype stores it; "hot_bf16" = pages with more than
+    # one holder (shared prefixes, fork pages) read at full precision,
+    # pages with one holder read as int8 with per-row scales. Every write
+    # lands in both representations, so a page flips with no rewrite.
+    # Excludes kv_cache_dtype "int8".
+    kv_page_policy: str = "uniform"
 
 
 # Inference options of the JAX package that this port does not implement
 # yet, with the only value it accepts.
 _UNPORTED_INFERENCE = {
-    "kv_layout": "contiguous",
-    "kv_page_policy": "uniform",
     "role": "both",
     "spec_len": 0,
     "dp_size": 1,
@@ -337,6 +358,36 @@ class Config:
             raise ValueError(
                 f"unknown inference.kv_cache_dtype {inf.kv_cache_dtype!r} "
                 "(auto|int8)")
+        if inf.kv_layout not in ("contiguous", "paged"):
+            raise ValueError(
+                f"unknown inference.kv_layout {inf.kv_layout!r} "
+                "(contiguous|paged)")
+        if inf.kv_page_len < 8 or inf.kv_page_len & (inf.kv_page_len - 1):
+            raise ValueError(
+                f"inference.kv_page_len must be a power of two >= 8, got "
+                f"{inf.kv_page_len}")
+        if inf.kv_num_pages < 0:
+            raise ValueError(
+                "inference.kv_num_pages must be >= 0 (0 = auto-size)")
+        if inf.kv_page_policy not in ("uniform", "hot_bf16"):
+            raise ValueError(
+                f"unknown inference.kv_page_policy {inf.kv_page_policy!r} "
+                "(uniform|hot_bf16)")
+        if inf.kv_page_policy == "hot_bf16":
+            if inf.kv_layout != "paged":
+                raise ValueError(
+                    "inference.kv_page_policy 'hot_bf16' requires the paged "
+                    "KV layout (per-page refcounts decide which pages read "
+                    "as int8); set inference.kv_layout: 'paged', or keep "
+                    "kv_page_policy: 'uniform' on the contiguous layout")
+            if inf.kv_cache_dtype == "int8":
+                raise ValueError(
+                    "inference.kv_page_policy 'hot_bf16' manages its own "
+                    "int8 representation for cold pages and is mutually "
+                    "exclusive with kv_cache_dtype: 'int8' (a uniformly "
+                    "quantized cache has no full-precision pages to keep "
+                    "hot); set kv_cache_dtype: 'auto', or keep "
+                    "kv_page_policy: 'uniform' for a fully int8 cache")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

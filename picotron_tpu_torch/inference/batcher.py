@@ -14,6 +14,12 @@ Each ``step()``:
           device;
   retire: slots that hit EOS or their budget release their cache slot.
 
+On the paged layout (``engine.paged``) admission prices each request in
+pool pages (``page_commitment``): a request that could never fit the pool
+is shed at the door (finish reason "shed", no tokens), and under passing
+pressure the queue waits for live slots to return pages; the prefill is
+``engine.prefill_paged``, which shares the longest cached prompt prefix.
+
 Free slots still ride through the decode block (fixed shapes); they carry
 a zero budget at length 0 and their outputs are ignored. One
 ``torch.Generator`` seeded from ``seed`` draws every sampled token.
@@ -56,7 +62,7 @@ class GenerationResult:
     uid: str
     prompt: list
     tokens: list  # generated ids, EOS included when hit
-    finish_reason: str  # "eos" | "length"
+    finish_reason: str  # "eos" | "length" | "shed"
     queue_wait_s: Optional[float] = None  # submit -> admit
     ttft_s: Optional[float] = None  # submit -> first token
     dispatches: int = 0  # decode blocks this request's slot took part in
@@ -100,7 +106,9 @@ class ContinuousBatcher:
         self._top_p = np.ones(n, np.float32)
         self._eos = np.full(n, -1, np.int32)
         self._budget = np.zeros(n, np.int32)
-        # lifetime counters (bench + tests)
+        # lifetime counters (bench + tests); ``counters`` keeps the JAX
+        # batcher's request accounting names
+        self.counters = {"admitted": 0, "completed": 0, "shed": 0}
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.generated_tokens = 0
@@ -134,11 +142,41 @@ class ContinuousBatcher:
     def busy(self) -> bool:
         return bool(self._pending) or any(s is not None for s in self._slots)
 
+    # ---- paged admission pricing ------------------------------------------
+
+    @property
+    def paged(self):
+        """The engine's host page allocator (None on the contiguous
+        layout)."""
+        return self.engine.paged
+
+    def commitment(self, req: Request) -> int:
+        """Worst-case tokens ``req`` can hold: its prompt plus what it may
+        still generate under the window."""
+        return len(req.prompt) + max(0, min(
+            req.max_new_tokens, self.engine.max_seq_len - len(req.prompt)))
+
+    def page_commitment(self, req: Request) -> int:
+        """Worst-case pool pages ``req`` can occupy: its commitment plus the
+        one row a stopped slot keeps rewriting, in pages, at most a slot's
+        window. Prefix hits only make the real footprint smaller."""
+        return min(self.paged.pages_for(self.commitment(req) + 1),
+                   self.paged.max_pages)
+
+    def page_load(self) -> int:
+        """Worst-case page commitment of every queued and live request."""
+        load = sum(self.page_commitment(r) for r in self._pending)
+        for s in self._slots:
+            if s is not None:
+                load += self.page_commitment(s.req)
+        return load
+
     def stats(self) -> dict:
         """Serving counters (the JAX batcher's ``/statz`` fields that the
         port has), with the resident bytes of the weights and the cache
-        that int8 storage shrinks."""
-        return {
+        that int8 storage shrinks; on the paged layout, the pool's
+        occupancy and the prefix cache's counters too."""
+        d = {
             "decode_dispatches": self.decode_dispatches,
             "prefill_dispatches": self.prefill_dispatches,
             "generated_tokens": self.generated_tokens,
@@ -151,6 +189,9 @@ class ContinuousBatcher:
                 "torch."),
             "cache_bytes": cache_bytes(self._cache),
         }
+        if self.paged is not None:
+            d.update(self.paged.stats())
+        return d
 
     def take_results(self) -> dict:
         """Finished results since the last call: {uid: GenerationResult}."""
@@ -170,6 +211,7 @@ class ContinuousBatcher:
 
     def _finish(self, i: int, reason: str) -> None:
         s = self._slots[i]
+        self.counters["completed"] += 1
         self._results[s.req.uid] = GenerationResult(
             s.req.uid, list(s.req.prompt), list(s.generated), reason,
             queue_wait_s=s.queue_wait_s, ttft_s=s.ttft_s,
@@ -211,6 +253,12 @@ class ContinuousBatcher:
         """Prefill ``req`` into slot ``i`` (one-shot or chunked); return its
         last-token logits [1, V]."""
         eng = self.engine
+        if self.paged is not None:
+            self.paged.priced[i] = self.page_commitment(req)
+            self._cache, logits, n, _ = eng.prefill_paged(
+                self.params, self._cache, req.prompt, i)
+            self.prefill_dispatches += n
+            return logits
         if len(req.prompt) > eng.prefill_chunk:
             self._cache, logits = eng.prefill_chunked(
                 self.params, self._cache, req.prompt, i)
@@ -226,10 +274,11 @@ class ContinuousBatcher:
         for i in range(len(self._slots)):
             if self._slots[i] is not None:
                 continue
-            if not self._pending:
+            req = self._next_admissible()
+            if req is None:
                 return
-            req = self._pending.popleft()
             submit_t = self._submit_t.pop(req.uid, None)
+            self.counters["admitted"] += 1
             logits = self._prefill_into(req, i)
             slot = _Slot(req, submit_t=submit_t)
             if submit_t is not None:
@@ -246,6 +295,27 @@ class ContinuousBatcher:
                 torch.tensor([req.top_k], dtype=torch.int32, device=dev),
                 torch.tensor([req.top_p], dtype=torch.float32, device=dev))
             self._token_done(i, int(first[0]))
+
+    def _next_admissible(self):
+        """Pop the next request to admit, or None to stop admitting this
+        round. Paged: a request that can never fit the pool is shed here;
+        one that does not fit now waits, since admitting it could strand a
+        live slot mid-decode."""
+        while self._pending:
+            req = self._pending[0]
+            if self.paged is not None:
+                need = self.page_commitment(req)
+                if need > self.paged.usable_pages:
+                    self._pending.popleft()
+                    self._submit_t.pop(req.uid, None)
+                    self.counters["shed"] += 1
+                    self._results[req.uid] = GenerationResult(
+                        req.uid, list(req.prompt), [], "shed")
+                    continue
+                if not self.paged.can_admit(need):
+                    return None
+            return self._pending.popleft()
+        return None
 
     def step(self) -> None:
         """Admit waiting requests into free slots, then advance every

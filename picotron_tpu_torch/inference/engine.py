@@ -14,12 +14,22 @@ Port of the serving subset of ``picotron_tpu/inference/engine.py``:
   mask derived from the cache lengths) stays on the device, so the host
   reads results once per block.
 
-Weights and cache come in two storage forms each: ``weight_dtype``
+- ``prefill_paged(params, cache, prompt, slot)``: the paged layout's
+  admission: share the longest radix-cached prefix of the prompt and
+  prefill only the rest.
+
+The cache has two layouts: ``kv_layout`` "contiguous" (a strip per slot,
+``kv_cache.py``) or "paged" (a page pool behind block tables, with radix
+prefix sharing and copy-on-write: ``paged_kv.py``, whose host allocator
+``self.paged`` the engine consults before every write). Weights and cache
+come in two storage forms each: ``weight_dtype``
 "bf16" (the dense tree) or "int8" (the tree from
 ``llama.quantize_params``: every matmul site dispatches on its leaf, so
 the engine only records the choice), and ``cache_dtype`` full precision
 or int8 (``kv_cache.py``: quantized on write, one-shot prefill blocks
-quantized by ``_pack_kv`` before ``insert``).
+quantized by ``_pack_kv`` before ``insert``). The paged layout's
+``kv_page_policy`` "hot_bf16" keeps both forms of every page and reads
+each page as one or the other by its holder count.
 
 The JAX package compiles each of these as one jitted program with
 ``lax.scan`` over layers and steps; here they are Python loops that
@@ -33,7 +43,7 @@ import numpy as np
 import torch
 
 from picotron_tpu_torch.config import Config
-from picotron_tpu_torch.inference import kv_cache, sampling
+from picotron_tpu_torch.inference import kv_cache, paged_kv, sampling
 from picotron_tpu_torch.models import llama
 from picotron_tpu_torch.ops.rope import precompute_rope, rope_at_positions
 from picotron_tpu_torch.utils import resolve_device, torch_dtype
@@ -50,9 +60,11 @@ class InferenceEngine:
     ``weight_dtype`` default from ``cfg.inference``; keyword overrides win.
     ``cache_dtype`` ("int8", ``torch.int8``, or a full-precision torch
     dtype) wins over ``inference.kv_cache_dtype`` when given, so a caller
-    can turn cache quantization off as well as on. ``device=None`` is the
-    CUDA card (and raises without one); pass ``device="cpu"`` for the
-    plain PyTorch path on the CPU.
+    can turn cache quantization off as well as on. ``kv_layout``,
+    ``kv_page_len``, ``kv_num_pages`` and ``kv_page_policy`` override their
+    ``cfg.inference`` fields the same way. ``device=None`` is the CUDA
+    card (and raises without one); pass ``device="cpu"`` for the plain
+    PyTorch path on the CPU.
     """
 
     def __init__(self, cfg: Config, device=None, *, slots: int = 8,
@@ -61,7 +73,10 @@ class InferenceEngine:
                  prefill_chunk: int | None = None,
                  attend_impl: str | None = None,
                  weight_dtype: str | None = None,
-                 cache_dtype=None):
+                 cache_dtype=None, kv_layout: str | None = None,
+                 kv_page_len: int | None = None,
+                 kv_num_pages: int | None = None,
+                 kv_page_policy: str | None = None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
         self.device = resolve_device(device)
         m, inf = self.cfg.model, self.cfg.inference
@@ -105,28 +120,136 @@ class InferenceEngine:
         else:
             raise ValueError(f"unknown cache_dtype {cache_dtype!r} (int8, "
                              f"'auto' or a torch dtype)")
+        self._init_paged(kv_layout, kv_page_len, kv_num_pages,
+                         kv_page_policy)
         # angle tables cover the whole cache window; decode gathers rows at
         # each slot's own offset
         self._cos, self._sin = precompute_rope(
             self.max_seq_len, m.head_dim, m.rope_theta, self._dt,
             device=self.device)
 
+    def _init_paged(self, kv_layout, kv_page_len, kv_num_pages,
+                    kv_page_policy) -> None:
+        """The KV layout, the page policy and, for "paged", the host
+        allocator, with the JAX engine's checks and messages."""
+        inf = self.cfg.inference
+        if kv_layout is not None:
+            if kv_layout not in ("contiguous", "paged"):
+                raise ValueError(
+                    f"unknown kv_layout {kv_layout!r} (contiguous|paged)")
+            inf.kv_layout = kv_layout
+        self.kv_layout = inf.kv_layout
+        if kv_page_policy is not None:
+            if kv_page_policy not in ("uniform", "hot_bf16"):
+                raise ValueError(
+                    f"unknown kv_page_policy {kv_page_policy!r} "
+                    "(uniform|hot_bf16)")
+            inf.kv_page_policy = kv_page_policy
+        self.kv_page_policy = inf.kv_page_policy
+        if self.kv_page_policy == "hot_bf16":
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "kv_page_policy 'hot_bf16' requires kv_layout='paged' "
+                    "(per-page refcounts decide which pages read as int8); "
+                    "set kv_layout='paged' or keep kv_page_policy="
+                    "'uniform'")
+            if self.quantized:
+                raise ValueError(
+                    "kv_page_policy 'hot_bf16' is mutually exclusive with "
+                    "an int8 cache (it manages its own quantized "
+                    "representation); drop cache_dtype/kv_cache_dtype "
+                    "'int8' or keep kv_page_policy='uniform'")
+        self.page_policy = self.kv_page_policy == "hot_bf16"
+        self.paged = None
+        if self.kv_layout != "paged":
+            return
+        self.page_len = int(kv_page_len or inf.kv_page_len)
+        if self.page_len < 8 or self.page_len & (self.page_len - 1):
+            raise ValueError(f"kv_page_len must be a power of two >= 8, got "
+                             f"{self.page_len}")
+        # each slot's logical window, in pages (>= max_seq_len rows)
+        self.max_pages = -(-self.max_seq_len // self.page_len)
+        self.num_pages = int(kv_num_pages or inf.kv_num_pages
+                             or 1 + self.slots * self.max_pages)
+        if self.num_pages < 2:
+            raise ValueError("kv_num_pages must be >= 2 "
+                             "(page 0 is the reserved NULL page)")
+        self.paged = paged_kv.PagedKV(self.slots, self.page_len,
+                                      self.max_pages, self.num_pages,
+                                      prefix_cache=inf.prefix_cache)
+
     # ---- cache ------------------------------------------------------------
 
     def init_cache(self) -> dict:
-        """A fresh zeroed cache on the engine's device."""
+        """A fresh zeroed cache on the engine's device. On the paged layout
+        this also resets the host allocator (pool, radix cache, tables)."""
+        dtype = None if self.quantized else self.cache_dtype
+        if self.paged is not None:
+            self.paged.reset()
+            return paged_kv.init_cache(
+                self.cfg.model, self.slots, self.num_pages, self.page_len,
+                self.max_pages, dtype=dtype, device=self.device,
+                quantized=self.quantized, policy=self.page_policy)
         return kv_cache.init_cache(
-            self.cfg.model, self.slots, self.max_seq_len,
-            dtype=None if self.quantized else self.cache_dtype,
+            self.cfg.model, self.slots, self.max_seq_len, dtype=dtype,
             device=self.device, quantized=self.quantized)
 
     def insert(self, cache: dict, kv: dict, slot: int, length: int) -> dict:
-        """Park a prefill's blocks in ``slot`` (in place)."""
+        """Park a prefill's blocks in ``slot`` (in place). Paged: allocate
+        the slot's pages on the host first, then scatter through its
+        table row."""
+        if self.paged is not None:
+            cache = self._ensure(cache, slot, 0, length)
+            cache = self._sync_tables(cache)
+            self.paged.set_len(slot, length)
+            return paged_kv.insert_prefill(cache, kv, slot, length)
         return kv_cache.insert_prefill(cache, kv, slot, length)
 
     def release(self, cache: dict, slot: int) -> dict:
-        """Free a slot for the next request (in place)."""
+        """Free a slot for the next request (in place). Paged: drop its page
+        references; pages the radix cache or other slots hold live on."""
+        if self.paged is not None:
+            self.paged.free_slot(slot)
+            cache = self._sync_tables(cache)
         return kv_cache.release(cache, slot)
+
+    # ---- paged-layout host plumbing ---------------------------------------
+
+    def _sync_tables(self, cache: dict) -> dict:
+        """Copy the host allocator's block tables to the device (and, under
+        ``hot_bf16``, the per-page read flags from the live refcounts)."""
+        cache["block_tables"].copy_(torch.from_numpy(self.paged.tables))
+        if self.page_policy:
+            cache["page_quant"].copy_(
+                torch.from_numpy(self.paged.quant_flags()))
+        return cache
+
+    def _ensure(self, cache: dict, slot: int, from_pos: int,
+                to_pos: int) -> dict:
+        """Make rows [from_pos, to_pos) of ``slot`` writable: allocate its
+        growth pages and run the planned copy-on-writes as device page
+        copies, so no write of the next dispatch lands in a page another
+        holder has."""
+        for src, dst in self.paged.ensure_writable(slot, from_pos, to_pos):
+            cache = paged_kv.copy_page(cache, src, dst)
+        return cache
+
+    def _pre_write(self, cache: dict, nwrite: int, budget=None) -> dict:
+        """Before a decode block: every parked slot (length > 0) writes up
+        to ``nwrite`` rows from its length, inactive slots' hidden rows
+        included, and none may land in a shared page. ``budget`` caps a
+        slot's reach at ``budget[s] + 1`` rows (what it can emit, and the
+        one row a stopped slot keeps rewriting), which is what admission
+        priced. Ensures them all, then syncs the tables."""
+        p = self.paged
+        window = p.max_pages * p.page_len
+        if budget is not None:
+            budget = np.asarray(budget)
+        for s in np.flatnonzero(p.host_len > 0):
+            n = nwrite if budget is None else min(nwrite, int(budget[s]) + 1)
+            cache = self._ensure(cache, int(s), int(p.host_len[s]),
+                                 min(int(p.host_len[s]) + n, window))
+        return self._sync_tables(cache)
 
     def prefill_bucket(self, prompt_len: int) -> int:
         """Power-of-two padding bucket for a prompt."""
@@ -146,12 +269,19 @@ class InferenceEngine:
 
     def _pack_kv(self, K: torch.Tensor, V: torch.Tensor) -> dict:
         """Prefill K/V blocks in the cache's storage form: quantized
-        (int8 values and scales) or cast to the cache dtype."""
+        (int8 values and scales) or cast to the cache dtype; a ``hot_bf16``
+        engine packs both forms, which the paged insert parks side by
+        side."""
         if self.quantized:
             qk, ks = kv_cache.quantize_kv(K)
             qv, vs = kv_cache.quantize_kv(V)
             return {"k": qk, "v": qv, "k_scale": ks, "v_scale": vs}
-        return {"k": K.to(self.cache_dtype), "v": V.to(self.cache_dtype)}
+        out = {"k": K.to(self.cache_dtype), "v": V.to(self.cache_dtype)}
+        if self.page_policy:
+            qk, ks = kv_cache.quantize_kv(K)
+            qv, vs = kv_cache.quantize_kv(V)
+            out.update({"k_q": qk, "v_q": qv, "k_scale": ks, "v_scale": vs})
+        return out
 
     @torch.no_grad()
     def prefill(self, params, prompt_ids) -> tuple:
@@ -185,10 +315,20 @@ class InferenceEngine:
         """Run the layer stack on ``h`` against the cache rows of ``slots``,
         writing each layer's new K/V from ``pos`` on (an int8 cache's
         chunk is written first, then attended in its dequantized form, as
-        in the JAX package)."""
+        in the JAX package). A pool has no slot axis: a paged layer cache
+        is each layer's whole pool with the block-table rows of ``slots``
+        (and the ``hot_bf16`` flags, which have no layer axis)."""
+        paged = self.paged is not None
         for i in range(self.cfg.model.num_hidden_layers):
-            lc = {name: t[i, slots] for name, t in cache.items()
-                  if name != "lengths"}
+            if paged:
+                lc = {name: t[i] for name, t in cache.items()
+                      if name not in paged_kv.META_LEAVES}
+                lc["block_tables"] = cache["block_tables"][slots]
+                if self.page_policy:
+                    lc["page_quant"] = cache["page_quant"]
+            else:
+                lc = {name: t[i, slots] for name, t in cache.items()
+                      if name != "lengths"}
             h, _ = llama.decoder_layer(llama.layer_params(params, i), h, cos,
                                        sin, self.cfg, cache=lc, pos=pos)
         return h
@@ -231,16 +371,60 @@ class InferenceEngine:
         logits = None
         for s0 in range(start, ids.size, C):
             end = min(s0 + C, ids.size)
-            # the write window is the chunk's full [w0, w0 + C) rows; near
-            # the end of the window it slides back and re-feeds overlap
-            # tokens, whose rows recompute to the values already parked
-            w0 = min(s0, self.max_seq_len - C)
+            if self.paged is None:
+                # the write window is the chunk's full [w0, w0 + C) rows;
+                # near the end of the window it slides back and re-feeds
+                # overlap tokens, whose rows recompute to the values
+                # already parked
+                w0 = min(s0, self.max_seq_len - C)
+            else:
+                # pages have no end to slide from (rows past the window go
+                # to the NULL page), and a slid chunk would re-feed, and
+                # copy for nothing, a shared prefix it exists to skip
+                w0 = s0
+                # allocate or copy every page holding a real chunk row;
+                # pad rows reach unallocated entries and the NULL page
+                cache = self._ensure(cache, slot, w0, end)
+                cache = self._sync_tables(cache)
             chunk = ids[w0:end]
             padded = np.zeros((1, C), np.int32)
             padded[0, : chunk.size] = chunk
             logits = self._prefill_chunk(params, cache, self._tokens(padded),
                                          slot, w0, chunk.size)
+            if self.paged is not None:
+                self.paged.set_len(slot, end)
         return cache, logits
+
+    @torch.no_grad()
+    def prefill_paged(self, params, cache, prompt_ids, slot: int) -> tuple:
+        """Paged admission of one prompt into ``slot`` (in place): share the
+        longest radix-cached prefix (references only, no prefill for those
+        tokens) and prefill the rest as chunks that attend over the shared
+        pages. A miss takes the contiguous path's dispatches (the one-shot
+        prefill at or under ``prefill_chunk``, chunks above it). Then the
+        prompt's pages are registered for the next request. Returns
+        (cache, last-token logits [1, V], dispatches, cached tokens)."""
+        if self.paged is None:
+            raise ValueError("prefill_paged needs kv_layout='paged'")
+        ids = [int(t) for t in np.asarray(prompt_ids, np.int32).reshape(-1)]
+        if not ids:
+            raise ValueError("empty prompt")
+        cached = self.paged.match_prefix(slot, ids)
+        if cached > 0:
+            cache = paged_kv.set_length(self._sync_tables(cache), slot,
+                                        cached)
+            cache, logits = self.prefill_chunked(params, cache, ids, slot,
+                                                 start=cached)
+            n = -(-(len(ids) - cached) // self.prefill_chunk)
+        elif len(ids) <= self.prefill_chunk:
+            kv, logits = self.prefill(params, ids)
+            cache = self.insert(cache, kv, slot, len(ids))
+            n = 1
+        else:
+            cache, logits = self.prefill_chunked(params, cache, ids, slot)
+            n = -(-len(ids) // self.prefill_chunk)
+        self.paged.register_prompt(slot, ids)
+        return cache, logits, n, cached
 
     def _decode_core(self, params, cache, tokens) -> torch.Tensor:
         """One model step for all slots: ``tokens`` [B] at each slot's own
@@ -264,8 +448,13 @@ class InferenceEngine:
         stop advancing (their recomputed row writes land past the length
         mask). Returns (cache, tokens [slots, block], produced counts
         [slots]) as device tensors: ``counts[b]`` leading entries of row b
-        are what slot b produced."""
+        are what slot b produced. Paged: every page the block can write is
+        made the writer's own first, and the host lengths follow the
+        counts after."""
         dev = self.device
+        if self.paged is not None:
+            cache = self._pre_write(cache, self.decode_block_len,
+                                    budget=budget)
         tok = self._tokens(tokens)
         eos = self._tokens(eos_id)
         budget = self._tokens(budget)
@@ -290,4 +479,6 @@ class InferenceEngine:
             cache["lengths"] = torch.where(active, pos + 1, pos)
             tok = torch.where(active, sampled, tok)
         counts = torch.stack(actives, dim=1).sum(dim=1, dtype=torch.int32)
+        if self.paged is not None:
+            self.paged.advance(counts.cpu().numpy())
         return cache, torch.stack(emitted, dim=1), counts

@@ -15,6 +15,10 @@ Port of ``picotron_tpu/inference/kv_cache.py`` for the contiguous layout:
   dequantizes in registers; the dense attend dequantizes the block to
   fp32 first, as the JAX package does.
 
+A paged layer cache (its dict carries ``block_tables``: the paged
+layout, ``inference/paged_kv.py``) takes the paged write and attend of
+that module.
+
 Unlike the JAX package, whose arrays are immutable, the port updates the
 cache IN PLACE (``cache_write``, ``insert_prefill``, ``release``): the
 cache is the largest tensor a server holds, and a copy per token would
@@ -94,7 +98,12 @@ def cache_write(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     rows landing at the same positions. The engine keeps every row it
     writes inside the window (the chunk window slides back from the end,
     a parked slot never holds more than T - 1 tokens); the clamp only
-    keeps an index that would break that rule from faulting the device."""
+    keeps an index that would break that rule from faulting the device.
+    A paged layer cache takes ``paged_kv.cache_write``."""
+    if "block_tables" in layer_cache:
+        from picotron_tpu_torch.inference import paged_kv
+
+        return paged_kv.cache_write(layer_cache, k_new, v_new, pos)
     B, S = k_new.shape[:2]
     T = layer_cache["k"].shape[1]
     rows = (pos.long()[:, None]
@@ -117,7 +126,11 @@ def attend(q: torch.Tensor, layer_cache: dict, lengths: torch.Tensor,
     flash-decode kernel (an int8 cache's bytes and scales go to its int8
     variant as stored; CPU tensors take the plain versions), "dense"
     ``decode_attention`` over the whole window (an int8 cache dequantized
-    to fp32 first)."""
+    to fp32 first). A paged layer cache takes ``paged_kv.attend``."""
+    if "block_tables" in layer_cache:
+        from picotron_tpu_torch.inference import paged_kv
+
+        return paged_kv.attend(q, layer_cache, lengths, scale, impl=impl)
     if impl == "flash":
         return flash_decode_attention(q, layer_cache["k"], layer_cache["v"],
                                       lengths.to(torch.int32), scale,

@@ -22,9 +22,19 @@ TRAINING_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
 # the LM head is G, every cache attend C's int8 variant
 SERVING_INT8_KERNELS = (rmsnorm.KERNEL, quant_matmul.KERNEL,
                         flash_attention.KERNEL, decode_attention.KERNEL_INT8)
+# the paged layout: every cache attend (decode and the chunked prefill
+# that resumes over shared pages) through C's variant for the page
+# storage; B runs the one-shot prefill of a prefix miss
+SERVING_PAGED_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
+                         decode_attention.KERNEL_PAGED)
+SERVING_PAGED_INT8_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
+                              decode_attention.KERNEL_PAGED_INT8)
+SERVING_MIXED_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
+                         decode_attention.KERNEL_MIXED)
 # every kernel, in the order of the JAX package's Pallas kernels (A to G,
-# C's int8 variant beside C)
+# C's variants beside C)
 KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
-           decode_attention.KERNEL_INT8, rmsnorm.KERNEL_BWD,
-           flash_attention.KERNEL_DQ, flash_attention.KERNEL_DKV,
-           quant_matmul.KERNEL)
+           decode_attention.KERNEL_INT8, decode_attention.KERNEL_PAGED,
+           decode_attention.KERNEL_PAGED_INT8, decode_attention.KERNEL_MIXED,
+           rmsnorm.KERNEL_BWD, flash_attention.KERNEL_DQ,
+           flash_attention.KERNEL_DKV, quant_matmul.KERNEL)

@@ -48,6 +48,9 @@ SIGNATURES = {
                               _P],
     "picotron_flash_decode_int8": [_P] * 7 + [_I] * 6 + [_F, _P],
     "picotron_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "picotron_flash_decode_paged": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "picotron_flash_decode_paged_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "picotron_flash_decode_mixed": [_P] * 11 + [_I] * 7 + [_F, _P],
 }
 
 

@@ -32,8 +32,15 @@
 // Where the keys and values come from is a template parameter, the tile
 // source: Bf16KV reads bf16 rows (kernels B and C); Int8KV reads int8 rows
 // and their fp32 per-row scales and dequantizes each row in registers,
-// int8 -> fp32 x scale, before it enters the tile (C's int8 variant). The
-// walk, the masks and the softmax are the same code for both.
+// int8 -> fp32 x scale, before it enters the tile (C's int8 variant).
+// Paged<Bf16KV>, Paged<Int8KV> and MixedKV read a slot's keys out of a page
+// pool through its block-table row (C's paged variants, paged_decode.cu):
+// key t lives in pool page table[t / page_len] at row t % page_len. A paged
+// source copies the table entries a 128-key tile spans into shared memory
+// once per tile (prepare_tile, then a barrier), so no thread reads the
+// table per key. The walk, the masks and the softmax are the same code for
+// every source: on the same rows a paged variant computes bit for bit
+// what its contiguous twin computes.
 //
 // Nothing carries over between blocks, unlike the TPU grid that runs in
 // order on one core: each block loops over its own KV tiles.
@@ -51,6 +58,7 @@ constexpr int kRows = 64;      // query rows per block
 constexpr int kKeys = 128;     // keys per KV tile
 constexpr int kThreads = 128;  // one thread per key in the score phase
 constexpr int kWarps = kThreads / 32;
+constexpr int kMinPageLen = 8;  // the smallest KV page (a power of two)
 static_assert(kThreads == kKeys, "the score phase maps one thread to a key");
 
 template <int D>
@@ -107,6 +115,7 @@ __device__ __forceinline__ void dequant4(uint32_t w, float sc, float* f) {
 // stride elements apart. key_row fills one key's D values, value_chunk 8
 // values (chunk c) of one value row, both in fp32.
 struct Bf16KV {
+  static constexpr bool kPaged = false;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   size_t stride;
@@ -129,6 +138,7 @@ struct Bf16KV {
 // int8 rows with one fp32 scale per (key, head): k_scale / v_scale point
 // at key 0's scale of the head, consecutive keys scale_stride apart.
 struct Int8KV {
+  static constexpr bool kPaged = false;
   const int8_t* k;
   const int8_t* v;
   const float* k_scale;
@@ -159,6 +169,124 @@ struct Int8KV {
     dequant4(u.y, sc, f + 4);
   }
 };
+
+// A slot's block-table row and the shared-memory copy of the entries the
+// current tile spans: kKeys >> page_shift of them (one when a page holds a
+// whole tile or more).
+struct PageMap {
+  const int* table;  // the slot's max_pages entries (device memory)
+  int* tile_pages;   // shared, kKeys / kMinPageLen entries
+  int max_pages;
+  int page_shift;    // log2(page_len)
+
+  __device__ __forceinline__ int tile_entries() const {
+    return page_shift >= 7 ? 1 : (kKeys >> page_shift);
+  }
+  // the tile starting at key t0 (a multiple of kKeys); entries past the
+  // table (a tile that overhangs the window) point at the NULL page
+  __device__ __forceinline__ void prepare_tile(int t0) const {
+    const int first = t0 >> page_shift;
+    for (int i = threadIdx.x; i < tile_entries(); i += kThreads) {
+      const int p = first + i;
+      tile_pages[i] = p < max_pages ? table[p] : 0;
+    }
+  }
+  // index into tile_pages of a key of the current tile
+  __device__ __forceinline__ int entry(int key) const {
+    return (key & (kKeys - 1)) >> page_shift;
+  }
+  // the pool row (page * page_len + offset) that holds a key of the tile
+  __device__ __forceinline__ int pool_row(int key) const {
+    return (tile_pages[entry(key)] << page_shift) |
+           (key & ((1 << page_shift) - 1));
+  }
+};
+
+// A contiguous source read through a page map: Rows addresses the pool as
+// one run of page_len-row pages (stride and scale stride as in a
+// contiguous cache), and each key is sent to its pool row.
+template <class Rows>
+struct Paged {
+  static constexpr bool kPaged = true;
+  Rows rows;
+  PageMap map;
+
+  __device__ __forceinline__ void prepare_tile(int t0) const {
+    map.prepare_tile(t0);
+  }
+  template <int D>
+  __device__ __forceinline__ void key_row(int key, float* kr) const {
+    rows.template key_row<D>(map.pool_row(key), kr);
+  }
+  __device__ __forceinline__ void value_chunk(int key, int c,
+                                              float* f) const {
+    rows.value_chunk(map.pool_row(key), c, f);
+  }
+};
+
+// hot_bf16 mixed pages: two pools side by side, one flag per page
+// (page_quant[page] != 0: read the int8 pool with its scales, else the bf16
+// pool). prepare_tile copies each tile page's flag beside its id. With
+// page_len < 32 a warp's keys span several pages, so the two branches can
+// diverge inside a warp.
+struct MixedKV {
+  static constexpr bool kPaged = true;
+  Bf16KV hot;
+  Int8KV cold;
+  PageMap map;
+  const int* page_quant;  // [num_pages]
+  int* tile_quant;        // shared, beside map.tile_pages
+
+  __device__ __forceinline__ void prepare_tile(int t0) const {
+    const int first = t0 >> map.page_shift;
+    for (int i = threadIdx.x; i < map.tile_entries(); i += kThreads) {
+      const int p = first + i;
+      const int page = p < map.max_pages ? map.table[p] : 0;
+      map.tile_pages[i] = page;
+      tile_quant[i] = page_quant[page];
+    }
+  }
+  template <int D>
+  __device__ __forceinline__ void key_row(int key, float* kr) const {
+    const int row = map.pool_row(key);
+    if (tile_quant[map.entry(key)] != 0) {
+      cold.template key_row<D>(row, kr);
+    } else {
+      hot.template key_row<D>(row, kr);
+    }
+  }
+  __device__ __forceinline__ void value_chunk(int key, int c,
+                                              float* f) const {
+    const int row = map.pool_row(key);
+    if (tile_quant[map.entry(key)] != 0) {
+      cold.value_chunk(row, c, f);
+    } else {
+      hot.value_chunk(row, c, f);
+    }
+  }
+};
+
+// The block's folded query rows for kernel C (slot b, kv head kvh, rows
+// row0..): GQA folds the g = H / Hkv query heads of a kv head into rows
+// (row = s * g + head-in-group). Fills sm.off / sm.pos; returns the row
+// count and sets max_pos.
+template <int D>
+__device__ __forceinline__ int fold_rows(Smem<D>& sm, int b, int kvh,
+                                         int row0, int S, int H, int Hkv,
+                                         int len, int& max_pos) {
+  const int g = H / Hkv;
+  const int nr = min(kRows, S * g - row0);
+  for (int r = threadIdx.x; r < nr; r += kThreads) {
+    const int s = (row0 + r) / g;
+    const int h = kvh * g + (row0 + r) % g;
+    sm.off[r] = (static_cast<long long>(b) * S + s) * H * D +
+                static_cast<long long>(h) * D;
+    sm.pos[r] = len - S + s;
+  }
+  max_pos = len - S + (row0 + nr - 1) / g;
+  __syncthreads();
+  return nr;
+}
 
 // Attend the block's nr rows (sm.off / sm.pos filled for r < nr by the
 // caller, before a __syncthreads) against keys [0, n_keys) of one head,
@@ -200,6 +328,10 @@ __device__ void attend_rows_kv(Smem<D>& sm, int nr, int max_pos,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int t0 = tile * kKeys;
     const int key = t0 + tid;
+    if constexpr (KV::kPaged) {  // the tile's page ids, then every thread
+      kv.prepare_tile(t0);       // reads them from shared memory
+      __syncthreads();
+    }
 
     // 1. the tile
     for (int idx = tid; idx < kKeys * kChunks; idx += kThreads) {

@@ -4,8 +4,8 @@
 // Replaces picotron_tpu/ops/pallas/decode_attention.py::_flash_decode_kernel
 // (:162), reached through flash_decode_attention (:376): the contiguous
 // variants, full precision (picotron_flash_decode) and int8 with per-row
-// scales (picotron_flash_decode_int8, the quantized=True path); paged
-// block tables and hot_bf16 mixed pages are not ported yet. Same
+// scales (picotron_flash_decode_int8, the quantized=True path); the paged
+// and hot_bf16 variants are in paged_decode.cu. Same
 // function: S >= 1 fresh queries per slot, q [B, S, H, D], against the
 // slot's cache block k/v [B, T, Hkv, D] (bf16, or int8 with fp32 scales
 // k_scale/v_scale [B, T, Hkv], each row dequantized in registers as
@@ -36,29 +36,10 @@
 
 namespace {
 
+using picotron::fold_rows;
 using picotron::kRows;
 using picotron::kThreads;
 using picotron::Smem;
-
-// The block's folded rows (slot b, kv head kvh, rows row0..): fills
-// sm.off / sm.pos; returns the row count and sets max_pos.
-template <int D>
-__device__ __forceinline__ int fold_rows(Smem<D>& sm, int b, int kvh,
-                                         int row0, int S, int H, int Hkv,
-                                         int len, int& max_pos) {
-  const int g = H / Hkv;
-  const int nr = min(kRows, S * g - row0);
-  for (int r = threadIdx.x; r < nr; r += kThreads) {
-    const int s = (row0 + r) / g;
-    const int h = kvh * g + (row0 + r) % g;
-    sm.off[r] = (static_cast<long long>(b) * S + s) * H * D +
-                static_cast<long long>(h) * D;
-    sm.pos[r] = len - S + s;
-  }
-  max_pos = len - S + (row0 + nr - 1) / g;
-  __syncthreads();
-  return nr;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)

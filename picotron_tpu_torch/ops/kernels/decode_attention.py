@@ -16,6 +16,25 @@ zeros. Two variants, each its own kernel with its own launch count:
   each row dequantized in registers (int8 -> fp32 x scale) as the tile
   loads. Its plain version dequantizes the whole block to fp32 first and
   runs the full-precision arithmetic.
+
+With ``block_tables`` [B, max_pages] int32 the cache is the paged layout
+(``inference/paged_kv.py``): k/v (and scales) are a page pool
+``[P, page_len, Hkv, D]`` and key ``t`` of slot ``b`` is row
+``t % page_len`` of pool page ``block_tables[b, t // page_len]``, over
+``max_pages * page_len`` keys (csrc/paged_decode.cu). Three more
+variants, each its own kernel and count:
+
+- paged (``KERNEL_PAGED``): a bf16 pool;
+- paged int8 (``KERNEL_PAGED_INT8``): an int8 pool with fp32 scales;
+- mixed (``KERNEL_MIXED``, the ``hot_bf16`` policy): the bf16 pool k/v
+  beside the int8 pool ``k_quant``/``v_quant`` with its scales; page
+  ``p`` is read from the int8 pool when ``page_quant[p]`` is nonzero. The
+  kernel looks the flags up through the table; the Pallas wrapper takes
+  them gathered, as ``block_quant = page_quant[block_tables]``.
+
+Their plain versions gather each slot's window through its table row
+(JAX's dense read, ``paged_kv.attend``) and run the contiguous plain
+arithmetic on it.
 """
 
 from __future__ import annotations
@@ -31,6 +50,19 @@ KERNEL = build.Kernel(
 KERNEL_INT8 = build.Kernel(
     name="flash_decode_int8", route="cuda",
     source="picotron_tpu_torch/ops/kernels/csrc/decode_attention.cu",
+    replaces="picotron_tpu/ops/pallas/decode_attention.py:162")
+
+KERNEL_PAGED = build.Kernel(
+    name="flash_decode_paged", route="cuda",
+    source="picotron_tpu_torch/ops/kernels/csrc/paged_decode.cu",
+    replaces="picotron_tpu/ops/pallas/decode_attention.py:162")
+KERNEL_PAGED_INT8 = build.Kernel(
+    name="flash_decode_paged_int8", route="cuda",
+    source="picotron_tpu_torch/ops/kernels/csrc/paged_decode.cu",
+    replaces="picotron_tpu/ops/pallas/decode_attention.py:162")
+KERNEL_MIXED = build.Kernel(
+    name="flash_decode_mixed", route="cuda",
+    source="picotron_tpu_torch/ops/kernels/csrc/paged_decode.cu",
     replaces="picotron_tpu/ops/pallas/decode_attention.py:162")
 
 HEAD_DIMS = (64, 128)  # head_dim values the kernel is compiled for
@@ -70,6 +102,62 @@ def flash_decode_attention_int8_plain(q, k, v, lengths, scale, k_scale,
     return flash_decode_attention_plain(q, kf, vf, lengths, scale)
 
 
+def gather_window(pool: torch.Tensor, block_tables: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pool [P, page_len, ...] through tables [B, max_pages] -> each slot's
+    window [B, max_pages * page_len, ...]."""
+    g = pool[block_tables.long()]
+    return g.reshape((block_tables.shape[0], -1) + tuple(pool.shape[2:]))
+
+
+def flash_decode_attention_paged_plain(q, k, v, lengths, scale,
+                                       block_tables) -> torch.Tensor:
+    """The paged variant's plain version: k/v pools gathered into windows,
+    then the contiguous arithmetic."""
+    return flash_decode_attention_plain(
+        q, gather_window(k, block_tables), gather_window(v, block_tables),
+        lengths, scale)
+
+
+def flash_decode_attention_paged_int8_plain(q, k, v, lengths, scale,
+                                            k_scale, v_scale, block_tables
+                                            ) -> torch.Tensor:
+    """The paged int8 variant's plain version: gathered, dequantized to
+    fp32, then the contiguous arithmetic."""
+    return flash_decode_attention_int8_plain(
+        q, gather_window(k, block_tables), gather_window(v, block_tables),
+        lengths, scale, gather_window(k_scale, block_tables),
+        gather_window(v_scale, block_tables))
+
+
+def gather_mixed(k, v, k_quant, v_quant, k_scale, v_scale, block_tables,
+                 page_quant) -> tuple:
+    """``hot_bf16`` pages read as stored: both representations gathered
+    into windows, the int8 one dequantized, and each page's rows taken
+    from the one its flag selects. Returns fp32 (k, v) windows."""
+    page_len = k.shape[1]
+    flags = page_quant[block_tables.long()].repeat_interleave(page_len, 1)
+    quant = (flags != 0)[..., None, None]  # [B, T, 1, 1]
+    out = []
+    for full, q8, sc in ((k, k_quant, k_scale), (v, v_quant, v_scale)):
+        deq = (gather_window(q8, block_tables).float()
+               * gather_window(sc, block_tables)[..., None])
+        out.append(torch.where(quant, deq,
+                               gather_window(full, block_tables).float()))
+    return tuple(out)
+
+
+def flash_decode_attention_mixed_plain(q, k, v, lengths, scale, k_quant,
+                                       v_quant, k_scale, v_scale,
+                                       block_tables, page_quant
+                                       ) -> torch.Tensor:
+    """The mixed variant's plain version: the windows of ``gather_mixed``,
+    then the contiguous arithmetic."""
+    kf, vf = gather_mixed(k, v, k_quant, v_quant, k_scale, v_scale,
+                          block_tables, page_quant)
+    return flash_decode_attention_plain(q, kf, vf, lengths, scale)
+
+
 def _check(kernel, q, k, v, lengths, kv_dtype, *scales) -> None:
     B, S, H, D = q.shape
     if k.shape != v.shape or k.dim() != 4 or k.shape[0] != B \
@@ -102,26 +190,107 @@ def _check(kernel, q, k, v, lengths, kv_dtype, *scales) -> None:
                          "q/k/v 16-byte aligned")
 
 
+def _check_paged(kernel, q, k, v, lengths, block_tables, kv_dtype,
+                 scales=(), quant=(), page_quant=None) -> None:
+    """The paged variants' operands: pools [P, page_len, Hkv, D] (``quant``:
+    the mixed variant's int8 pools, the same shape), scales
+    [P, page_len, Hkv], tables [B, max_pages] and lengths [B] int32,
+    ``page_quant`` [P] int32."""
+    B, S, H, D = q.shape
+    P, page_len = k.shape[0], k.shape[1]
+    if k.dim() != 4 or any(t.shape != k.shape for t in (v, *quant)) \
+            or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"{kernel.name} shapes: q {tuple(q.shape)}, pools "
+                         f"{[tuple(t.shape) for t in (k, v, *quant)]}")
+    if any(tuple(t.shape) != tuple(k.shape[:3]) for t in scales):
+        raise ValueError(f"{kernel.name}: scales must be "
+                         f"{tuple(k.shape[:3])}; got "
+                         f"{[tuple(t.shape) for t in scales]}")
+    if page_len < 8 or page_len & (page_len - 1):
+        raise ValueError(f"{kernel.name}: page_len must be a power of two "
+                         f">= 8; got {page_len}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or block_tables.dtype != torch.int32:
+        raise ValueError(f"block_tables must be [{B}, max_pages] int32; got "
+                         f"{tuple(block_tables.shape)} {block_tables.dtype}")
+    if tuple(lengths.shape) != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be [{B}] int32; got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    if page_quant is not None and (tuple(page_quant.shape) != (P,)
+                                   or page_quant.dtype != torch.int32):
+        raise ValueError(f"page_quant must be [{P}] int32; got "
+                         f"{tuple(page_quant.shape)} {page_quant.dtype}")
+    extra = (*scales, *quant) + ((page_quant,) if page_quant is not None
+                                 else ())
+    ops = (q, k, v, block_tables, lengths, *extra)
+    if not q.is_cuda or any(t.device != q.device for t in ops):
+        raise ValueError(f"{kernel.name} kernel needs every operand on one "
+                         f"CUDA device")
+    if q.dtype != torch.bfloat16 or k.dtype != kv_dtype \
+            or v.dtype != kv_dtype \
+            or any(t.dtype != torch.int8 for t in quant) \
+            or any(t.dtype != torch.float32 for t in scales):
+        raise ValueError(f"{kernel.name} kernel takes bf16 q, {kv_dtype} "
+                         f"pools, int8 side pools and fp32 scales; got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{kernel.name} kernel takes head_dim in "
+                         f"{HEAD_DIMS}; got {D}")
+    if not all(t.is_contiguous() for t in ops) \
+            or any(t.data_ptr() % 16 for t in (q, k, v, *quant)):
+        raise ValueError(f"{kernel.name} kernel needs contiguous operands, "
+                         "q and the pools 16-byte aligned")
+
+
 def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lengths: torch.Tensor,
                            scale: float, k_scale: torch.Tensor | None = None,
-                           v_scale: torch.Tensor | None = None
+                           v_scale: torch.Tensor | None = None,
+                           block_tables: torch.Tensor | None = None,
+                           k_quant: torch.Tensor | None = None,
+                           v_quant: torch.Tensor | None = None,
+                           page_quant: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """See the module docstring. ``k_scale``/``v_scale`` select the int8
-    variant (int8 ``k``/``v``); they come together or not at all."""
+    variants (int8 ``k``/``v``); they come together or not at all.
+    ``block_tables`` selects the paged layout; ``k_quant``/``v_quant`` and
+    ``page_quant`` (with the scales of the int8 pool) the mixed pages."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
-    quantized = k_scale is not None
+    paged = block_tables is not None
+    mixed = k_quant is not None
+    if mixed != (v_quant is not None):
+        raise ValueError("k_quant and v_quant must be given together")
+    if mixed and not paged:
+        raise ValueError("mixed-precision pages (k_quant/v_quant) require "
+                         "the paged layout (block_tables)")
+    if mixed and (page_quant is None or k_scale is None):
+        raise ValueError("mixed-precision pages need page_quant per-page "
+                         "flags and k_scale/v_scale for the int8 pool")
+    quantized = k_scale is not None and not mixed
     if (k.dtype == torch.int8) != quantized:
         raise ValueError(
             f"int8 cache blocks need per-row scales (and vice versa); got "
             f"k.dtype={k.dtype} with scales="
-            f"{'set' if quantized else 'unset'}")
+            f"{'set' if k_scale is not None else 'unset'}")
     if q.device.type == "cpu":
+        if mixed:
+            return flash_decode_attention_mixed_plain(
+                q, k, v, lengths, scale, k_quant, v_quant, k_scale, v_scale,
+                block_tables, page_quant)
+        if paged and quantized:
+            return flash_decode_attention_paged_int8_plain(
+                q, k, v, lengths, scale, k_scale, v_scale, block_tables)
+        if paged:
+            return flash_decode_attention_paged_plain(q, k, v, lengths,
+                                                      scale, block_tables)
         if quantized:
             return flash_decode_attention_int8_plain(q, k, v, lengths, scale,
                                                      k_scale, v_scale)
         return flash_decode_attention_plain(q, k, v, lengths, scale)
+    if paged:
+        return _launch_paged(q, k, v, lengths, scale, k_scale, v_scale,
+                             block_tables, k_quant, v_quant, page_quant)
     B, S, H, D = q.shape
     if quantized:
         _check(KERNEL_INT8, q, k, v, lengths, torch.int8, k_scale, v_scale)
@@ -144,4 +313,44 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
             build.stream_of(q))
         build.check(rc, KERNEL)
         KERNEL.launches += 1
+    return out
+
+
+def _launch_paged(q, k, v, lengths, scale, k_scale, v_scale, block_tables,
+                  k_quant, v_quant, page_quant) -> torch.Tensor:
+    """One of the three paged kernels on CUDA tensors (checked first)."""
+    B, S, H, D = q.shape
+    mixed = k_quant is not None
+    if mixed:
+        kernel = KERNEL_MIXED
+        _check_paged(kernel, q, k, v, lengths, block_tables, torch.bfloat16,
+                     (k_scale, v_scale), (k_quant, v_quant), page_quant)
+    elif k_scale is not None:
+        kernel = KERNEL_PAGED_INT8
+        _check_paged(kernel, q, k, v, lengths, block_tables, torch.int8,
+                     (k_scale, v_scale))
+    else:
+        kernel = KERNEL_PAGED
+        _check_paged(kernel, q, k, v, lengths, block_tables, torch.bfloat16)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    dims = (B, S, H, k.shape[2], k.shape[1], block_tables.shape[1], D,
+            float(scale), build.stream_of(q))
+    tail = (block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr())
+    lib = build.library()
+    if mixed:
+        rc = lib.picotron_flash_decode_mixed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_quant.data_ptr(),
+            v_quant.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            page_quant.data_ptr(), *tail, *dims)
+    elif k_scale is not None:
+        rc = lib.picotron_flash_decode_paged_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), *tail, *dims)
+    else:
+        rc = lib.picotron_flash_decode_paged(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail, *dims)
+    build.check(rc, kernel)
+    kernel.launches += 1
     return out

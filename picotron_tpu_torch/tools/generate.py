@@ -12,6 +12,10 @@ has the same form as ``picotron_tpu.tools.generate``'s.
 ``--weight-dtype int8`` quantizes the fresh tree per output channel
 (``llama.quantize_params``) and serves it through kernel G;
 ``--kv-cache-dtype int8`` keeps the cache as int8 rows with fp32 scales.
+``--kv-layout paged`` serves from a page pool with radix prefix sharing
+(``--kv-page-policy hot_bf16`` reads shared pages at full precision and
+a slot's own pages as int8); a second summary line then reports the
+pool and the prefix cache's counters.
 ``--check-weight-parity`` runs the batch again on a bf16 engine fed the
 fake-quant reference (the int8 weights dequantized): on the CPU the
 greedy tokens must be identical; on the card, where the two matmuls round
@@ -136,6 +140,17 @@ def main(argv=None, device=None) -> int:
                     help="KV cache storage (default: config "
                          "inference.kv_cache_dtype; int8 = quantized "
                          "cache, ~2x slots/context per HBM byte)")
+    ap.add_argument("--kv-layout", choices=["contiguous", "paged"],
+                    default=None,
+                    help="KV cache layout (default: config "
+                         "inference.kv_layout; paged = block-table pool "
+                         "with refcounted prefix sharing + COW)")
+    ap.add_argument("--kv-page-policy", choices=["uniform", "hot_bf16"],
+                    default=None,
+                    help="per-page storage policy (paged layout only; "
+                         "default: config inference.kv_page_policy) — "
+                         "hot_bf16 reads radix-shared prefix pages at "
+                         "full precision, exclusive tails as int8")
     ap.add_argument("--weight-dtype", choices=["bf16", "int8"],
                     default=None,
                     help="weight storage (default: config "
@@ -160,8 +175,13 @@ def main(argv=None, device=None) -> int:
     cfg = Config.from_json(args.config)
     if args.kv_cache_dtype is not None:
         cfg.inference.kv_cache_dtype = args.kv_cache_dtype
+    if args.kv_layout is not None:
+        cfg.inference.kv_layout = args.kv_layout
+    if args.kv_page_policy is not None:
+        cfg.inference.kv_page_policy = args.kv_page_policy
     if args.weight_dtype is not None:
         cfg.inference.weight_dtype = args.weight_dtype
+    cfg.validate()
     if args.check_weight_parity and cfg.inference.weight_dtype != "int8":
         ap.error("--check-weight-parity compares int8 against the "
                  "fake-quant reference; pass --weight-dtype int8")
@@ -207,6 +227,16 @@ def main(argv=None, device=None) -> int:
           f"kv={kv}, weights={engine.weight_dtype}, "
           f"{batcher.decode_dispatches} decode dispatches = "
           f"{dpt:.3f}/token)")
+    if batcher.paged is not None:
+        st = batcher.stats()
+        log0(f"paged kv: page_len={st['kv_page_len']}, "
+             f"policy={engine.kv_page_policy}, pages live "
+             f"{st['kv_pages_live']}/{st['kv_pages_total']} "
+             f"(shared {st['kv_pages_shared']}, int8-read "
+             f"{st['kv_pages_quant']}), prefix hits "
+             f"{st['prefix_hits']}/{st['prefix_queries']}, cached tokens "
+             f"{st['prefix_cached_tokens']}, cow copies "
+             f"{st['cow_copies']}, evictions {st['radix_evictions']}")
     if failed:
         print("FAILED: some request produced no/invalid tokens",
               file=sys.stderr)

@@ -492,7 +492,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("train.py", "train_step.py", "data.py",
                  os.path.join("ops", "cross_entropy.py"),
                  os.path.join("ops", "quant_matmul.py"),
-                 os.path.join("ops", "kernels", "quant_matmul.py")):
+                 os.path.join("ops", "kernels", "quant_matmul.py"),
+                 os.path.join("inference", "paged_kv.py")):
         assert os.path.join(REPO, "picotron_tpu_torch", name) in files
     for path in files:
         with open(path) as f:
@@ -542,7 +543,7 @@ def test_config_validation_messages_and_unported_options():
     with pytest.raises(ValueError, match="inference.decode_block_len must"):
         Config.from_dict({"inference": {"decode_block_len": 0}})
     with pytest.raises(ValueError, match="not in the PyTorch port yet"):
-        Config.from_dict({"inference": {"kv_layout": "paged"}})
+        Config.from_dict({"inference": {"role": "prefill"}})
     cfg = Config.from_dict({"inference": {"kv_layout": "contiguous",
                                           "unknown_knob": 3},
                             "training": {"seq_length": 4}})

@@ -330,9 +330,14 @@ def test_config_and_engine_validate_dtypes():
     with pytest.raises(ValueError, match=r"unknown inference.kv_cache_dtype "
                                          r"'fp8' \(auto\|int8\)"):
         Config.from_dict({"inference": {"kv_cache_dtype": "fp8"}})
-    for raw in ({"kv_layout": "paged"}, {"kv_page_policy": "hot_bf16"}):
+    for raw in ({"role": "decode"}, {"spec_len": 2}):
         with pytest.raises(ValueError, match="not in the PyTorch port yet"):
             Config.from_dict({"inference": raw})
+    with pytest.raises(ValueError, match="mutually exclusive with "
+                                         "kv_cache_dtype: 'int8'"):
+        Config.from_dict({"inference": {"kv_layout": "paged",
+                                        "kv_page_policy": "hot_bf16",
+                                        "kv_cache_dtype": "int8"}})
     cfg = Config.from_dict({"model": {
         "num_hidden_layers": 1, "num_attention_heads": 2,
         "num_key_value_heads": 2, "hidden_size": 16,
