@@ -106,9 +106,7 @@ class ContinuousBatcher:
         self._top_p = np.ones(n, np.float32)
         self._eos = np.full(n, -1, np.int32)
         self._budget = np.zeros(n, np.int32)
-        # lifetime counters (bench + tests); ``counters`` keeps the JAX
-        # batcher's request accounting names
-        self.counters = {"admitted": 0, "completed": 0, "shed": 0}
+        # lifetime counters (bench + tests)
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.generated_tokens = 0
@@ -211,7 +209,6 @@ class ContinuousBatcher:
 
     def _finish(self, i: int, reason: str) -> None:
         s = self._slots[i]
-        self.counters["completed"] += 1
         self._results[s.req.uid] = GenerationResult(
             s.req.uid, list(s.req.prompt), list(s.generated), reason,
             queue_wait_s=s.queue_wait_s, ttft_s=s.ttft_s,
@@ -278,7 +275,6 @@ class ContinuousBatcher:
             if req is None:
                 return
             submit_t = self._submit_t.pop(req.uid, None)
-            self.counters["admitted"] += 1
             logits = self._prefill_into(req, i)
             slot = _Slot(req, submit_t=submit_t)
             if submit_t is not None:
@@ -308,7 +304,6 @@ class ContinuousBatcher:
                 if need > self.paged.usable_pages:
                     self._pending.popleft()
                     self._submit_t.pop(req.uid, None)
-                    self.counters["shed"] += 1
                     self._results[req.uid] = GenerationResult(
                         req.uid, list(req.prompt), [], "shed")
                     continue

@@ -60,11 +60,11 @@ class InferenceEngine:
     ``weight_dtype`` default from ``cfg.inference``; keyword overrides win.
     ``cache_dtype`` ("int8", ``torch.int8``, or a full-precision torch
     dtype) wins over ``inference.kv_cache_dtype`` when given, so a caller
-    can turn cache quantization off as well as on. ``kv_layout``,
-    ``kv_page_len``, ``kv_num_pages`` and ``kv_page_policy`` override their
-    ``cfg.inference`` fields the same way. ``device=None`` is the CUDA
-    card (and raises without one); pass ``device="cpu"`` for the plain
-    PyTorch path on the CPU.
+    can turn cache quantization off as well as on. The KV layout and its
+    pages (``kv_layout``, ``kv_page_len``, ``kv_num_pages``,
+    ``prefix_cache``, ``kv_page_policy``) come from ``cfg.inference``
+    alone. ``device=None`` is the CUDA card (and raises without one); pass
+    ``device="cpu"`` for the plain PyTorch path on the CPU.
     """
 
     def __init__(self, cfg: Config, device=None, *, slots: int = 8,
@@ -73,10 +73,7 @@ class InferenceEngine:
                  prefill_chunk: int | None = None,
                  attend_impl: str | None = None,
                  weight_dtype: str | None = None,
-                 cache_dtype=None, kv_layout: str | None = None,
-                 kv_page_len: int | None = None,
-                 kv_num_pages: int | None = None,
-                 kv_page_policy: str | None = None):
+                 cache_dtype=None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
         self.device = resolve_device(device)
         m, inf = self.cfg.model, self.cfg.inference
@@ -120,57 +117,36 @@ class InferenceEngine:
         else:
             raise ValueError(f"unknown cache_dtype {cache_dtype!r} (int8, "
                              f"'auto' or a torch dtype)")
-        self._init_paged(kv_layout, kv_page_len, kv_num_pages,
-                         kv_page_policy)
+        self._init_paged()
         # angle tables cover the whole cache window; decode gathers rows at
         # each slot's own offset
         self._cos, self._sin = precompute_rope(
             self.max_seq_len, m.head_dim, m.rope_theta, self._dt,
             device=self.device)
 
-    def _init_paged(self, kv_layout, kv_page_len, kv_num_pages,
-                    kv_page_policy) -> None:
+    def _init_paged(self) -> None:
         """The KV layout, the page policy and, for "paged", the host
-        allocator, with the JAX engine's checks and messages."""
+        allocator. ``Config.validate`` has checked the layout, the page
+        length and the policy; only the ``cache_dtype`` override can still
+        meet ``hot_bf16`` with an int8 cache."""
         inf = self.cfg.inference
-        if kv_layout is not None:
-            if kv_layout not in ("contiguous", "paged"):
-                raise ValueError(
-                    f"unknown kv_layout {kv_layout!r} (contiguous|paged)")
-            inf.kv_layout = kv_layout
         self.kv_layout = inf.kv_layout
-        if kv_page_policy is not None:
-            if kv_page_policy not in ("uniform", "hot_bf16"):
-                raise ValueError(
-                    f"unknown kv_page_policy {kv_page_policy!r} "
-                    "(uniform|hot_bf16)")
-            inf.kv_page_policy = kv_page_policy
         self.kv_page_policy = inf.kv_page_policy
-        if self.kv_page_policy == "hot_bf16":
-            if self.kv_layout != "paged":
-                raise ValueError(
-                    "kv_page_policy 'hot_bf16' requires kv_layout='paged' "
-                    "(per-page refcounts decide which pages read as int8); "
-                    "set kv_layout='paged' or keep kv_page_policy="
-                    "'uniform'")
-            if self.quantized:
-                raise ValueError(
-                    "kv_page_policy 'hot_bf16' is mutually exclusive with "
-                    "an int8 cache (it manages its own quantized "
-                    "representation); drop cache_dtype/kv_cache_dtype "
-                    "'int8' or keep kv_page_policy='uniform'")
+        if self.kv_page_policy == "hot_bf16" and self.quantized:
+            raise ValueError(
+                "kv_page_policy 'hot_bf16' is mutually exclusive with "
+                "an int8 cache (it manages its own quantized "
+                "representation); drop cache_dtype/kv_cache_dtype "
+                "'int8' or keep kv_page_policy='uniform'")
         self.page_policy = self.kv_page_policy == "hot_bf16"
         self.paged = None
         if self.kv_layout != "paged":
             return
-        self.page_len = int(kv_page_len or inf.kv_page_len)
-        if self.page_len < 8 or self.page_len & (self.page_len - 1):
-            raise ValueError(f"kv_page_len must be a power of two >= 8, got "
-                             f"{self.page_len}")
+        self.page_len = inf.kv_page_len
         # each slot's logical window, in pages (>= max_seq_len rows)
         self.max_pages = -(-self.max_seq_len // self.page_len)
-        self.num_pages = int(kv_num_pages or inf.kv_num_pages
-                             or 1 + self.slots * self.max_pages)
+        self.num_pages = (inf.kv_num_pages
+                          or 1 + self.slots * self.max_pages)
         if self.num_pages < 2:
             raise ValueError("kv_num_pages must be >= 2 "
                              "(page 0 is the reserved NULL page)")

@@ -1,0 +1,114 @@
+"""Decode rate of the port's two contiguous serving paths, for two trees in
+one run on one CUDA card.
+
+    python3 serve_ab.py --root OLD --root NEW
+
+Each ``--root`` is a checkout of the repo (its ``picotron_tpu_torch`` and
+``chip_smoke.py``). The trees run in the order OLD, NEW, NEW, OLD, each
+run in a process of its own with that root first on ``sys.path`` (its
+kernels built from its own sources), so a drift of the card or the host
+over the run falls on both trees alike. Each run serves
+``chip_smoke.py``'s 8 requests (the tree's own ``_requests``) twice after
+a warm-up on two paths:
+
+- ``serve``: SmolLM-1.7B (config #2's model, bf16) on the contiguous bf16
+  cache, ``attend_impl="flash"``;
+- ``serve_int8``: Llama-2-7B (config #4's model) with int8 weights and
+  int8 KV cache.
+
+Random weights from seed 0, 8 slots, the configs' decode block and chunk.
+Prints one JSON line per path and run (decode tokens/s as
+``chip_smoke.py`` computes it, TTFT p50 and max, wall seconds), then one
+summary line with each tree's median decode rate per path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPEATS = 2  # timed runs per path and process, after one warm-up
+
+
+def _child(root: str) -> None:
+    """One process's runs, on the tree at ``root``."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+
+    for path, config, int8 in (("serve", cs.CONFIG, False),
+                               ("serve_int8", cs.CONFIG_7B, True)):
+        cfg = Config.from_json(config)
+        if int8:
+            cfg.inference.weight_dtype = "int8"
+            cfg.inference.kv_cache_dtype = "int8"
+        engine = InferenceEngine(cfg, "cuda", slots=8, attend_impl="flash")
+        params = llama.init_params(engine.cfg.model, seed=cs.SEED,
+                                   device=engine.device)
+        if int8:
+            params = llama.quantize_params(params)
+        ContinuousBatcher(engine, params, seed=cs.SEED).run(
+            [Request("warm", list(range(1, 25)), max_new_tokens=2)])
+        for rep in range(REPEATS):
+            requests = cs._requests(np, cfg.model.vocab_size, f"r{rep}_")
+            batcher = ContinuousBatcher(engine, params, seed=cs.SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = batcher.run(requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ttft = sorted(results[r.uid].ttft_s for r in requests)
+            print(json.dumps({
+                "root": root, "path": path, "repeat": rep,
+                "decode_tokens_per_s": (batcher.generated_tokens
+                                        - len(requests))
+                / batcher.decode_seconds,
+                "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+                "wall_s": wall}), flush=True)
+        del engine, params
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", action="append", required=True,
+                    help="a checkout of the repo; give exactly two")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        _child(os.path.abspath(args.root[0]))
+        return 0
+    if len(args.root) != 2:
+        ap.error("give exactly two --root")
+    old, new = (os.path.abspath(r) for r in args.root)
+    rates = {}
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", "--root",
+             root], cwd=root, check=True, stdout=subprocess.PIPE, text=True)
+        for line in out.stdout.splitlines():
+            if line.startswith("{"):
+                print(line, flush=True)
+                rec = json.loads(line)
+                rates.setdefault(rec["path"], {}).setdefault(
+                    "old" if root == old else "new", []).append(
+                        rec["decode_tokens_per_s"])
+    print(json.dumps({"median_decode_tokens_per_s": {
+        path: {tree: statistics.median(v) for tree, v in by.items()}
+        for path, by in rates.items()}, "runs": rates}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
