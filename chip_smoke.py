@@ -26,6 +26,12 @@ Run from the root of a checkout. Phases, each of which must pass:
    three identities that must hold bit for bit (max |diff| = 0): paged C
    over a shuffled table = contiguous C over the same rows, paged C-int8 =
    C-int8, and mixed pages with every flag 0 (1) = paged C (paged C-int8);
+   and kernel H (the segmented LoRA residual) at SmolLM-1.7B's seven
+   projection shapes at decode (8 rows mixing the null adapter with three
+   adapters, one of rank 4 in a rank-16 pack) and at a 512-row prefill
+   chunk, at Llama-2-7B's at decode and at a ragged shape, with two
+   ``torch.bmm`` over gathered adapters as its yardstick; its null rows
+   must come out exactly 0;
 3. the serving path: SmolLM-1.7B at full width and depth (random weights
    from a fixed seed, bf16) behind InferenceEngine + ContinuousBatcher with
    ``attend_impl="flash"``, serving 8 requests (six greedy, two sampled;
@@ -51,14 +57,26 @@ Run from the root of a checkout. Phases, each of which must pass:
    (shared) and int8 (one holder) pages; the hot_bf16 run once more under
    the profiler, then the generate command line with ``--kv-layout paged
    --kv-page-policy hot_bf16``, on the card by default;
-6. the int8 serving path: config #4's model (Llama-2-7B at full width and
+6. several tenants in one batch: the SmolLM-1.7B model of phase 3 on
+   paged bf16 pages with three tenants' LoRA adapters (ranks 16, 8 and 4,
+   priorities 2, 1 and 0) in one 8-slot pack, serving 10 requests (the
+   priority-0 tenant's two submitted first; the system prompt under
+   acme, acme, globex and base suffixes; r0's prompt again; unrelated
+   prompts; eight greedy, two sampled). The higher classes must be seated
+   first, H must launch 168 times for A's 49, the prefix cache must hit
+   only inside a tenant's domain, every greedy token must sit within the
+   margin of the top logit of its tenant's merged tree, and at least two
+   tenants' adapters must move their streams off the base model's; then
+   the run under the profiler (H's share of device time) and the generate
+   command line with ``--adapter 16:1 --check-adapter-parity``;
+7. the int8 serving path: config #4's model (Llama-2-7B at full width and
    depth, random weights from a fixed seed quantized on the card) with
    ``weight_dtype`` and ``kv_cache_dtype`` "int8", serving the same 8
    requests, under the same checks; every product runs through G and every
    cache attend through C's int8 variant, and its profile must show no
    library GEMM or attention kernel; then the generate command line with
    ``--weight-dtype int8 --kv-cache-dtype int8``;
-7. the training path: config #2's ``model`` and ``training`` sections on a
+8. the training path: config #2's ``model`` and ``training`` sections on a
    single device (full-width, 24-layer SmolLM-1.7B, seq 2048 x micro-batch
    4, remat "full", AdamW) from a fixed seed over the synthetic loader.
    First the gate: one step's loss and gradients through the kernels must
@@ -68,9 +86,10 @@ Run from the root of a checkout. Phases, each of which must pass:
    kernel launched. Then the ``picotron_tpu_torch.train`` command line on
    config #1, on the card by default, and one training step under
    torch.profiler;
-8. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+9. a ``{"kernels": [...]}`` line with each kernel's launches on its own
    path (and on each path: ``serve``, ``serve_paged``,
-   ``serve_paged_int8``, ``serve_mixed``, ``serve_int8``, ``train``), then
+   ``serve_paged_int8``, ``serve_mixed``, ``serve_tenants``,
+   ``serve_int8``, ``train``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
@@ -123,6 +142,37 @@ PAGED_RUNS = (("serve_paged", "auto", "uniform"),
               ("serve_paged_int8", "int8", "uniform"),
               ("serve_mixed", "auto", "hot_bf16"))
 SAMPLED = (3, 6)  # request indices drawn at temperature 0.8, top-p 0.9
+# the tenancy phase: three tenants with adapters of rank 16, 8 and 4 in an
+# 8-slot rank-16 pack (inference.tenancy), and the anonymous base tenant
+TENANTS = ({"name": "acme", "adapter_rank": 16, "adapter_seed": 1,
+            "priority": 2},
+           {"name": "globex", "adapter_rank": 8, "adapter_seed": 2,
+            "priority": 1},
+           {"name": "initech", "adapter_rank": 4, "adapter_seed": 3,
+            "priority": 0})
+# its traffic in submission order, (uid, tenant, prompt): initech's two
+# unrelated prompts first; r0-r3 the system prompt under SUFFIX_LENS for
+# acme, acme, globex and the base tenant; r4 r0's prompt again (acme);
+# r5-r7 unrelated prompts for globex, the base tenant and acme
+TENANT_TRAFFIC = (("i0", "initech", "unrelated", 500),
+                  ("i1", "initech", "unrelated", 650),
+                  ("r0", "acme", "system", SUFFIX_LENS[0]),
+                  ("r1", "acme", "system", SUFFIX_LENS[1]),
+                  ("r2", "globex", "system", SUFFIX_LENS[2]),
+                  ("r3", "", "system", SUFFIX_LENS[3]),
+                  ("r4", "acme", "repeat", 0),
+                  ("r5", "globex", "unrelated", 400),
+                  ("r6", "", "unrelated", 777),
+                  ("r7", "acme", "unrelated", 900))
+TENANT_SAMPLED = ("i1", "r5")  # drawn at temperature 0.8, top-p 0.9
+# what the radix cache must find (the port's allocator on this traffic on
+# the CPU, which is the JAX allocator's): hits only inside a tenant's own
+# domain, r1 on the system prompt and r4 on r0's prompt (one token short
+# of its end), both acme's; every tenant prefills the system prompt once
+TENANT_PREFIX_QUERIES = len(TENANT_TRAFFIC)
+TENANT_PREFIX_HITS = 2
+TENANT_PREFIX_CACHED = SYSTEM_LEN + SYSTEM_LEN + SUFFIX_LENS[0] - 1
+TENANT_COW = 9
 LOGIT_MARGIN = 0.3  # greedy token vs the reference's top logit (see phase 3)
 RTOL = ATOL = 2e-2  # kernel vs plain version in bf16 (see _check)
 # C's paged variants vs their plain versions, set from what they showed on
@@ -137,9 +187,21 @@ PAGED_SLOT_REL_L2 = 1e-2
 # G's (K, N) on the Llama-2-7B path: wq/wk/wv/wo, w_gate/w_up, w_down,
 # lm_head
 G_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+# H's (K, N): wq/wk/wv/wo, w_gate/w_up and w_down of SmolLM-1.7B (the
+# tenancy path) and of Llama-2-7B; a pack of 8 slots at rank 16 holding
+# adapters of rank 16, 8 and 4 in slots 1 to 3, and the decode rows' slots,
+# null rows among them
+H_SMOL_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048))
+H_7B_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+H_SLOTS, H_RANK = 8, 16
+H_ADAPTERS = ((1, 16), (2, 8), (3, 4))
+H_DECODE_IDS = (0, 1, 2, 3, 1, 0, 3, 2)
+# H vs its plain version: both sum fp32 products of the same bf16 inputs,
+# in different orders
+LORA_ATOL = LORA_RTOL = 1e-4
 WARMUP_STEPS = 2  # training steps before the timed ones
 TIMED_STEPS = 8
-# kernel path vs plain path, one training step in bf16 (phase 6): the two
+# kernel path vs plain path, one training step in bf16 (phase 8): the two
 # round P at different places (the flash kernels to bf16 before P @ V, the
 # plain sdpa never) and sum in different orders. On an H100 that moved the
 # loss by 5e-6 and a gradient leaf by up to 1.6e-2 relative L2
@@ -338,6 +400,7 @@ def _kernel_checks(torch, F) -> dict:
     _int8_kernel_checks(torch, F, randn, record)
     _paged_kernel_checks(torch, F, randn, record)
     _training_kernel_checks(torch, F, randn, record)
+    _lora_kernel_checks(torch, randn, record)
     return records
 
 
@@ -609,6 +672,70 @@ def _paged_kernel_checks(torch, F, randn, record) -> None:
         torch.cuda.empty_cache()
 
 
+def _lora_kernel_checks(torch, randn, record) -> None:
+    """Phase 2, kernel H: the segmented LoRA residual at the SmolLM-1.7B
+    projections' shapes at decode (8 rows, null rows among them, one
+    adapter of rank 4 in the rank-16 pack) and at a prefill chunk (1 row,
+    S = 512), Llama-2-7B's at decode, and a ragged shape with bf16 and
+    fp32 x. Null rows must come out exactly 0. The yardstick is two
+    ``torch.bmm`` over the rows' adapters gathered outside the timing."""
+    from picotron_tpu_torch.ops.kernels import lora_matmul as kh
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def pack(K, N):
+        a = torch.zeros(H_SLOTS, K, H_RANK, device=dev)
+        b = torch.zeros(H_SLOTS, H_RANK, N, device=dev)
+        for slot, r in H_ADAPTERS:
+            a[slot, :, :r] = 0.05 * torch.randn((K, r), generator=gen,
+                                                device=dev)
+            b[slot, :r] = 0.05 * torch.randn((r, N), generator=gen,
+                                             device=dev)
+        return a, b
+
+    cases = ([(8, 1, K, N, H_DECODE_IDS, "bf16") for K, N in H_SMOL_SHAPES]
+             + [(1, 512, K, N, (1,), "bf16") for K, N in H_SMOL_SHAPES]
+             + [(8, 1, K, N, H_DECODE_IDS, "bf16") for K, N in H_7B_SHAPES]
+             + [(3, 37, 1000, 1500, (2, 0, 3), x_dt)
+                for x_dt in ("bf16", "fp32")])
+    for B, S, K, N, id_list, x_dt in cases:
+        a, b = pack(K, N)
+        x = randn(B, S, K)
+        if x_dt == "fp32":
+            x = x.float()
+        ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
+        name = f"lora_matmul B={B} S={S} K={K} N={N} x={x_dt}"
+        got = kh.segmented_lora(x, a, b, ids)
+        want = kh.lora_matmul_plain(x, a, b, ids)
+        err = _check(name, got, want, atol=LORA_ATOL, rtol=LORA_RTOL)
+        null = ids == 0
+        null_max = float(got[null].abs().max()) if bool(null.any()) else 0.0
+        if null_max != 0.0:
+            raise AssertionError(f"{name}: null rows not exactly 0 (max "
+                                 f"|out| {null_max})")
+        xf, ag, bg = x.float(), a[ids.long()], b[ids.long()]
+        adapters = {i for i in id_list if i != 0}
+        nbytes = (x.numel() * x.element_size() + B * 4
+                  + len(adapters) * (K + N) * H_RANK * 4 + B * S * N * 4)
+        record(kh.KERNEL, {"B": B, "S": S, "K": K, "N": N, "R": H_RANK,
+                           "slots": H_SLOTS, "ids": list(id_list),
+                           "x": x_dt}, err,
+               _time_ms(lambda: kh.segmented_lora(x, a, b, ids)),
+               _time_ms(lambda: kh.lora_matmul_plain(x, a, b, ids)),
+               _time_ms(lambda: torch.bmm(torch.bmm(xf, ag), bg)),
+               _bound(nbytes, 2 * B * S * (K + N) * H_RANK),
+               main=(B, S, K, N) == (8, 1, 2048, 2048)
+               or (B, S, K, N) == (1, 512, 2048, 2048),
+               variant="chunk" if S == 512 else None,
+               library="torch.bmm twice over a[ids], b[ids] gathered "
+                       "outside the timing",
+               extra={"null_rows_max_abs": null_max,
+                      "tolerance": {"atol": LORA_ATOL, "rtol": LORA_RTOL}})
+        del a, b, x, xf, ag, bg, got, want
+    torch.cuda.empty_cache()
+
+
 def _fwd_bwd_less_fwd_ms(torch, fwd, inputs, grad_out) -> float:
     """A library call's backward time: forward + backward less forward,
     under autograd, for ``inputs`` that require gradients."""
@@ -719,13 +846,10 @@ def _training_kernel_checks(torch, F, randn, record) -> None:
         torch.cuda.empty_cache()
 
 
-def _greedy_agrees(torch, llama, params, cfg, res) -> float:
+def _greedy_gap(torch, llama, params, cfg, res) -> float:
     """The worst gap between a generated token's logit and the top logit
-    of a full-sequence forward over prompt + generated tokens: the
-    KV-cache path (prefill, chunks, decode blocks) must reproduce the
-    full-sequence model up to bf16 noise. A wrong cache position or mask
-    would pick tokens far from the top (about two units below it for a
-    random token of this model)."""
+    of a full-sequence forward of ``params`` over prompt + generated
+    tokens."""
     seq = res.prompt + res.tokens
     toks = torch.tensor([seq], dtype=torch.int64, device=DEVICE)
     logits = llama.forward_logits(params, toks, cfg)[0].float()
@@ -734,7 +858,16 @@ def _greedy_agrees(torch, llama, params, cfg, res) -> float:
     n = len(res.prompt)
     rows = logits[n - 1: len(seq) - 1]
     picked = rows.gather(1, torch.tensor(res.tokens, device=DEVICE)[:, None])
-    gap = float((rows.amax(dim=1) - picked[:, 0]).max())
+    return float((rows.amax(dim=1) - picked[:, 0]).max())
+
+
+def _greedy_agrees(torch, llama, params, cfg, res) -> float:
+    """``_greedy_gap``, which must stay within ``LOGIT_MARGIN``: the
+    KV-cache path (prefill, chunks, decode blocks) must reproduce the
+    full-sequence model up to bf16 noise. A wrong cache position or mask
+    would pick tokens far from the top (about two units below it for a
+    random token of this model)."""
+    gap = _greedy_gap(torch, llama, params, cfg, res)
     if gap > LOGIT_MARGIN:
         raise AssertionError(
             f"{res.uid}: a greedy token sits {gap:.3f} below the "
@@ -742,17 +875,14 @@ def _greedy_agrees(torch, llama, params, cfg, res) -> float:
     return gap
 
 
-def _profile(torch, run, path: str) -> list:
-    """Phases 4, 5 and 6: ``run`` (a main path's work once more) under
+def _profile(torch, run, path: str) -> dict:
+    """Phases 4 to 7: ``run`` (a main path's work once more) under
     torch.profiler. Prints one ``{"profile": ...}`` line: the wall time,
     the summed device time of every kernel (one stream, so kernels do not
     overlap and the sum over the wall is the device's busy share), and the
-    kernels that took the most device time. Returns every kernel's name."""
+    kernels that took the most device time. Returns every kernel's device
+    milliseconds by name."""
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        t = getattr(e, "self_device_time_total", None)
-        return t if t is not None else e.self_cuda_time_total
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -761,18 +891,23 @@ def _profile(torch, run, path: str) -> list:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernels only: an operator's row repeats the time of the kernels it
-    # launched
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    top = sorted(events, key=dev_us, reverse=True)[:15]
+    # the device's own events (kernels, copies) from the raw trace: the
+    # per-operator tables of key_averages() take minutes to build over a
+    # serving run's millions of host events
+    calls, dev_ms = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name, ms = e.name(), e.duration_ns() / 1e6
+        if str(e.device_type()).endswith("CUDA") and ms > 0:
+            calls[name] = calls.get(name, 0) + 1
+            dev_ms[name] = dev_ms.get(name, 0.0) + ms
+    busy_ms = sum(dev_ms.values())
+    top = sorted(dev_ms, key=dev_ms.get, reverse=True)[:15]
     print(json.dumps({"profile": {
         "path": path, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall * 1e3),
-        "top": [{"name": e.key[:90], "calls": e.count,
-                 "device_ms": dev_us(e) / 1e3} for e in top]}}), flush=True)
-    return [e.key for e in events]
+        "top": [{"name": name[:90], "calls": calls[name],
+                 "device_ms": dev_ms[name]} for name in top]}}), flush=True)
+    return dev_ms
 
 
 # device kernels of a library (cuBLAS GEMMs, PyTorch's attention) that the
@@ -797,7 +932,7 @@ def _requests(np, vocab: int, tag: str) -> list:
 
 def _serve_phase(torch, np, card, config: str, label: str, int8: bool,
                  path_kernels, all_kernels) -> dict:
-    """Phases 3 to 5, one serving path: the model of ``config`` at full
+    """Phases 3, 4 and 7, one serving path: the model of ``config`` at full
     width and depth (random weights from a fixed seed; with ``int8``
     quantized on the card, int8 KV cache) behind InferenceEngine +
     ContinuousBatcher with ``attend_impl="flash"``, serving 8 requests.
@@ -1113,13 +1248,262 @@ def _paged_serve_phase(torch, np, card, paths, all_kernels) -> dict:
     return by_path
 
 
+def _tenant_requests(np, vocab: int, tag: str, registry) -> list:
+    """The tenancy phase's 10 requests in ``TENANT_TRAFFIC``'s order, each
+    under its tenant's priority and adapter slot (``registry.resolve``),
+    ``NEW_TOKENS`` each, ``TENANT_SAMPLED`` at temperature 0.8 and top-p
+    0.9. As in the paged phase, every suffix and unrelated prompt starts
+    with a token no other prompt starts with, so the radix cache can match
+    only the system prompt and the repeated prompt."""
+    from picotron_tpu_torch.inference.batcher import Request
+
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(1, vocab, SYSTEM_LEN).tolist()
+    n = len(TENANT_TRAFFIC)
+    firsts = rng.choice(np.arange(1, vocab), n + 1, replace=False)
+    firsts = [int(t) for t in firsts if t != system[0]][:n]
+    prompts, reqs = {}, []
+    for j, (uid, tenant, kind, length) in enumerate(TENANT_TRAFFIC):
+        if kind == "repeat":
+            prompts[uid] = list(prompts["r0"])
+        else:
+            head = system if kind == "system" else []
+            prompts[uid] = (head + [firsts[j]]
+                            + rng.integers(1, vocab, length - 1).tolist())
+        t, slot = registry.resolve(tenant)
+        sampled = uid in TENANT_SAMPLED
+        reqs.append(Request(
+            f"{tag}{uid}", prompts[uid], max_new_tokens=NEW_TOKENS,
+            temperature=0.8 if sampled else 0.0,
+            top_p=0.9 if sampled else 1.0, tenant=tenant,
+            priority=t.priority, adapter_slot=slot,
+            ttft_slo_ms=t.ttft_slo_ms, tpot_slo_ms=t.tpot_slo_ms))
+    return reqs
+
+
+def _tenancy_config():
+    """Config #2's SmolLM-1.7B on paged bf16 pages with the radix prefix
+    cache and ``TENANTS`` in an ``H_SLOTS``-slot, rank-``H_RANK`` pack."""
+    from picotron_tpu_torch.config import Config
+
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw["inference"] = {
+        "kv_layout": "paged", "kv_page_len": PAGE_LEN, "kv_num_pages": 0,
+        "prefix_cache": True, "attend_impl": "flash",
+        "tenancy": {"tenants": [dict(t) for t in TENANTS],
+                    "adapter_slots": H_SLOTS, "adapter_rank": H_RANK}}
+    return Config.from_dict(raw)
+
+
+def _tenant_serve_phase(torch, np, card, path_kernels, all_kernels) -> dict:
+    """Phase 6: several tenants in one batch. SmolLM-1.7B at full width and
+    depth on paged bf16 pages (8 slots, the radix prefix cache on) with
+    ``TENANTS``' adapters in one pack (``tenancy.build_tenancy``), serving
+    ``TENANT_TRAFFIC``. Every kernel's count is set to 0 just before the
+    run and read just after; returns those counts. Gates: every request
+    gets its full budget of in-vocabulary tokens; the eight requests of
+    higher classes are seated before initech's two, which were submitted
+    first; only ``path_kernels`` launch and each does, H 168 times for
+    every 49 launches of A (7 projections of 24 layers per model step,
+    against 2 norms per layer and the final one); the prefix counters are
+    the allocator's for this traffic, with the system prompt cached once
+    in each of acme's, globex's and the base tenant's domains and not in
+    initech's; each greedy token within ``LOGIT_MARGIN`` of the top
+    logit of a full-sequence forward over its tenant's merged tree
+    (``llama.merge_adapter``; the base tree for base rows); and at least
+    two tenants' greedy streams leave the base model's (a token more than
+    ``LOGIT_MARGIN`` below the base forward's top logit). Then the run
+    once more under the profiler (H's share of device time), and the
+    generate command line with ``--adapter 16:1 --check-adapter-parity``,
+    on the card by default."""
+    from picotron_tpu_torch.inference import tenancy
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.ops.kernels import lora_matmul as kh
+    from picotron_tpu_torch.ops.kernels import rmsnorm as ka
+    from picotron_tpu_torch.tools import generate
+
+    cfg = _tenancy_config()
+    m = cfg.model
+    t0 = time.perf_counter()
+    pack, registry = tenancy.build_tenancy(cfg)
+    engine = InferenceEngine(cfg, DEVICE, slots=8, adapters=pack)
+    params = llama.init_params(m, seed=SEED, device=engine.device)
+    pack.device_leaves(engine.device)
+    torch.cuda.synchronize()
+    print(f"engine (serve_tenants): {m.name} L={m.num_hidden_layers} "
+          f"H={m.hidden_size} window={engine.max_seq_len}, "
+          f"slots={engine.slots} block={engine.decode_block_len} "
+          f"prefill_chunk={engine.prefill_chunk} attend=flash, paged: "
+          f"page_len={engine.page_len} pages={engine.num_pages}; pack "
+          f"{pack.slots} slots x rank {pack.rank}, {pack.nbytes()} bytes, "
+          f"tenants {registry.snapshot()}; built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    ContinuousBatcher(engine, params, seed=SEED).run(
+        [Request("warm", list(range(1, 25)), max_new_tokens=2,
+                 tenant="acme", adapter_slot=1)])
+    requests = _tenant_requests(np, m.vocab_size, "", registry)
+    batcher = ContinuousBatcher(engine, params, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in all_kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    for r in requests:
+        batcher.submit(r)
+    batcher.step()  # the first round: every free slot seated
+    seated_first = sorted(s.req.uid for s in batcher._slots if s is not None)
+    while batcher.busy:
+        batcher.step()
+    results = batcher.take_results()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {kern.name: kern.launches for kern in all_kernels}
+    launches = {kern.name: counts[kern.name] for kern in path_kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for r in requests:
+        res = results[r.uid]
+        if (len(res.tokens) != NEW_TOKENS or res.finish_reason != "length"
+                or not all(0 <= t < m.vocab_size for t in res.tokens)):
+            raise AssertionError(f"serve_tenants {r.uid}: "
+                                 f"{len(res.tokens)} tokens, "
+                                 f"{res.finish_reason}")
+    higher = sorted(r.uid for r in requests if r.tenant != "initech")
+    if seated_first != higher:
+        raise AssertionError(f"serve_tenants: the first round seated "
+                             f"{seated_first}, not the higher classes "
+                             f"{higher}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on serve_tenants: "
+                             f"{idle}")
+    stray = {k: n for k, n in counts.items() if n and k not in launches}
+    if stray:
+        raise AssertionError(f"kernels of another path launched on "
+                             f"serve_tenants: {stray}")
+    # per model step: H on 7 projections of every layer, A on 2 norms of
+    # every layer and the final one (168 and 49 at 24 layers)
+    n_a, n_h = counts[ka.KERNEL.name], counts[kh.KERNEL.name]
+    h_step, a_step = 7 * m.num_hidden_layers, 2 * m.num_hidden_layers + 1
+    if n_h * a_step != n_a * h_step:
+        raise AssertionError(f"serve_tenants: H launched {n_h} times for "
+                             f"{n_a} launches of A (want {h_step} per "
+                             f"{a_step})")
+    st = batcher.stats()
+    got = (st["prefix_queries"], st["prefix_hits"],
+           st["prefix_cached_tokens"], st["cow_copies"])
+    want = (TENANT_PREFIX_QUERIES, TENANT_PREFIX_HITS, TENANT_PREFIX_CACHED,
+            TENANT_COW)
+    if got != want:
+        raise AssertionError(f"serve_tenants: prefix queries, hits, cached "
+                             f"tokens, copy-on-writes {got} (want {want})")
+    system = requests[2].prompt[:SYSTEM_LEN]
+    domains = {name or "base": engine.paged.radix.match(system, salt=name)[1]
+               for name in ("acme", "globex", "", "initech")}
+    if (min(domains["acme"], domains["globex"], domains["base"])
+            < SYSTEM_LEN or domains["initech"] != 0):
+        raise AssertionError(f"serve_tenants: system prompt tokens cached "
+                             f"per tenant domain {domains}")
+    per_tenant = {}
+    for r in requests:
+        per_tenant.setdefault(r.tenant or "base", []).append(r)
+    for name, rs in per_tenant.items():
+        tally = st["tenants"][name]
+        if (tally["requests"], tally["tokens"]) != (
+                len(rs), len(rs) * NEW_TOKENS):
+            raise AssertionError(f"serve_tenants: tenant {name} tally "
+                                 f"{tally}")
+
+    # the greedy gate against each tenant's merged tree, and how far each
+    # tenant's greedy streams sit from the base model's
+    t_gate = time.perf_counter()
+    gaps, base_gaps = {}, {}
+    for name, rs in per_tenant.items():
+        greedy = [r for r in rs if r.temperature == 0.0]
+        if name == "base":
+            gaps.update({r.uid: _greedy_agrees(torch, llama, params,
+                                               engine.cfg, results[r.uid])
+                         for r in greedy})
+            continue
+        t = next(t for t in TENANTS if t["name"] == name)
+        merged = llama.merge_adapter(params, pack.random_leaves(
+            t["adapter_rank"], t["adapter_seed"]))
+        gaps.update({r.uid: _greedy_agrees(torch, llama, merged, engine.cfg,
+                                           results[r.uid]) for r in greedy})
+        del merged
+        base_gaps[name] = max(_greedy_gap(torch, llama, params, engine.cfg,
+                                          results[r.uid]) for r in greedy)
+    bitten = sorted(n for n, g in base_gaps.items() if g > LOGIT_MARGIN)
+    if len(bitten) < 2:
+        raise AssertionError(f"serve_tenants: adapters left the base "
+                             f"model's greedy streams for {bitten} only "
+                             f"(base-model logit gaps {base_gaps})")
+    ttft = sorted(results[r.uid].ttft_s for r in requests)
+    decode_tokens = batcher.generated_tokens - len(requests)
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B serve_tenants", "card": card,
+        "requests": len(requests),
+        "tenants": {r.uid: r.tenant or "base" for r in requests},
+        "prompt_lens": [len(r.prompt) for r in requests],
+        "new_tokens_each": NEW_TOKENS, "wall_s": wall,
+        "seated_first": seated_first,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "ttft_s": {r.uid: results[r.uid].ttft_s for r in requests},
+        "decode_tokens_per_s": decode_tokens / batcher.decode_seconds,
+        "tokens_per_s": batcher.generated_tokens / wall,
+        "decode_dispatches": batcher.decode_dispatches,
+        "prefill_dispatches": batcher.prefill_dispatches,
+        **{k: st[k] for k in (
+            "cache_bytes", "weight_bytes", "kv_pages_total",
+            "prefix_queries", "prefix_hits", "prefix_cached_tokens",
+            "cow_copies", "tenants")},
+        "system_prompt_cached_by_domain": domains,
+        "pack_bytes": pack.nbytes(),
+        "pack_bytes_per_token": pack.bytes_per_token(),
+        "peak_mem_gib": peak_gib, "launches": launches,
+        "greedy_max_logit_gap": max(gaps.values()),
+        "greedy_logit_gaps": gaps,
+        "base_model_logit_gaps": base_gaps,
+        "gate_s": time.perf_counter() - t_gate}), flush=True)
+
+    t_prof = time.perf_counter()
+    prof = _profile(torch, lambda: ContinuousBatcher(
+        engine, params, seed=SEED).run(
+            _tenant_requests(np, m.vocab_size, "p", registry)),
+        "serve_tenants")
+    lora_ms = sum(ms for name, ms in prof.items() if "lora_" in name)
+    print(json.dumps({"profile_lora_matmul": {
+        "path": "serve_tenants", "device_ms": lora_ms,
+        "share_of_device_time": lora_ms / sum(prof.values()),
+        "seconds": time.perf_counter() - t_prof}}), flush=True)
+    del engine, params, batcher, results, pack
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc = generate.main(["--config", CONFIG, "--random-init", "--seed", "1",
+                        "--prompt-ids", "5,276,388", "--prompt-ids",
+                        ",".join(str(i) for i in range(1, 41)),
+                        "--max-new-tokens", "8", "--slots", "2",
+                        "--attend-impl", "flash", "--adapter", "16:1",
+                        "--check-adapter-parity"])
+    if rc != 0:
+        raise AssertionError(f"generate CLI (--adapter) exited {rc}")
+    print(f"generate CLI (--adapter 16:1 --check-adapter-parity) passed in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
 def _training_agrees(torch, ts, llama, cfg, params, batch, device) -> dict:
-    """Phase 6's gate: one micro-batch's loss and gradients through the
+    """Phase 8's gate: one micro-batch's loss and gradients through the
     kernels against the plain path (sdpa attention, plain RMSNorm with
     torch autograd) from the same parameters and batch."""
     from picotron_tpu_torch.config import Config
@@ -1151,7 +1535,7 @@ def _training_agrees(torch, ts, llama, cfg, params, batch, device) -> dict:
 
 
 def _train_phase(torch, card: str, path_kernels, all_kernels) -> dict:
-    """Phase 6: the training main path. Every kernel's count is set to 0
+    """Phase 8: the training main path. Every kernel's count is set to 0
     just before the timed steps and read just after; returns those counts.
     ``path_kernels`` must each have launched."""
     from picotron_tpu_torch import train as train_cli
@@ -1271,6 +1655,7 @@ def main() -> int:
         SERVING_MIXED_KERNELS,
         SERVING_PAGED_INT8_KERNELS,
         SERVING_PAGED_KERNELS,
+        SERVING_TENANT_KERNELS,
         TRAINING_KERNELS,
         build,
     )
@@ -1290,31 +1675,43 @@ def main() -> int:
     print(f"kernel checks passed in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"phase {label} passed in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        return out
+
     # 3 and 4. the serving path and where its device time goes
-    by_path = {"serve": _serve_phase(torch, np, card, CONFIG,
-                                     "SmolLM-1.7B serve", False,
-                                     SERVING_KERNELS, KERNELS)}
+    by_path = {"serve": timed("serve", lambda: _serve_phase(
+        torch, np, card, CONFIG, "SmolLM-1.7B serve", False,
+        SERVING_KERNELS, KERNELS))}
     # 5. the paged serving path, three page storages
     paths = {"serve": SERVING_KERNELS,
              "serve_paged": SERVING_PAGED_KERNELS,
              "serve_paged_int8": SERVING_PAGED_INT8_KERNELS,
              "serve_mixed": SERVING_MIXED_KERNELS,
+             "serve_tenants": SERVING_TENANT_KERNELS,
              "serve_int8": SERVING_INT8_KERNELS,
              "train": TRAINING_KERNELS}
-    by_path.update(_paged_serve_phase(torch, np, card, paths, KERNELS))
-    # 6. the int8 serving path: Llama-2-7B, int8 weights and KV cache
-    by_path["serve_int8"] = _serve_phase(torch, np, card, CONFIG_7B,
-                                         "Llama-2-7B serve int8", True,
-                                         SERVING_INT8_KERNELS, KERNELS)
+    by_path.update(timed("serve_paged", lambda: _paged_serve_phase(
+        torch, np, card, paths, KERNELS)))
+    # 6. several tenants in one batch: the multi-LoRA path through H
+    by_path["serve_tenants"] = timed("serve_tenants", lambda: (
+        _tenant_serve_phase(torch, np, card, SERVING_TENANT_KERNELS,
+                            KERNELS)))
+    # 7. the int8 serving path: Llama-2-7B, int8 weights and KV cache
+    by_path["serve_int8"] = timed("serve_int8", lambda: _serve_phase(
+        torch, np, card, CONFIG_7B, "Llama-2-7B serve int8", True,
+        SERVING_INT8_KERNELS, KERNELS))
+    # 8. the training path at full width and depth
+    by_path["train"] = timed("train", lambda: _train_phase(
+        torch, card, TRAINING_KERNELS, KERNELS))
 
-    # 7. the training path at full width and depth
-    by_path["train"] = _train_phase(torch, card, TRAINING_KERNELS,
-                                    KERNELS)
-
-    # 8. the closing lines: each kernel's launches on its own path (the
+    # 9. the closing lines: each kernel's launches on its own path (the
     # first path that runs it: serving for A, B, C; each paged run for its
-    # variant of C; int8 serving for C-int8 and G; training for D, E, F),
-    # and on each path
+    # variant of C; the tenancy run for H; int8 serving for C-int8 and G;
+    # training for D, E, F), and on each path
     own = {}
     for path, path_kernels in paths.items():
         for k in path_kernels:
@@ -1326,7 +1723,7 @@ def main() -> int:
                                      for path, counts in by_path.items()},
                 **{key: records[k.name].get(key) for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "shape", "lse", "d128")}}
+                    "library_ms", "shape", "lse", "d128", "chunk")}}
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

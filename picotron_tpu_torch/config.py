@@ -15,8 +15,13 @@ Options that select a path this port does not have yet are refused, so a
 config never runs silently without the behaviour it asks for:
 
 - inference options (disaggregation roles, speculation, overlap, mixed
-  dispatch, on-device sampling, dp sharding) when set to anything but
-  their default, at load;
+  dispatch, on-device sampling, dp sharding) and the serving chaos hooks
+  (``resilience.chaos_dispatch_*``, ``chaos_latency_round``,
+  ``chaos_poison_logits_round``) when set to anything but their default,
+  at load;
+- tenants or a tenant manifest (``inference.tenancy``), by the generate
+  CLI: only the JAX package's ``tools/serve.py`` reads them, and the port
+  has no serve.py yet;
 - for training, ``Config.check_trainable`` (called by the trainer): any
   parallelism (dp, tp, pp or cp above 1, zero1, fsdp), ``remat``
   ``"save_attn"`` and ``"offload"``, HF datasets, checkpoint saving,
@@ -157,6 +162,25 @@ class ObsConfig:
 
 
 @dataclass
+class TenancyConfig:
+    """Multi-tenant serving (``inference/tenancy.py``): named tenants, each
+    an optional LoRA adapter over the shared (bf16 or int8) base, a
+    priority class, quotas and SLO targets. The default (no tenants, no
+    manifest) builds no adapter pack and leaves every path as it was."""
+
+    # inline tenant definitions (``tenancy.Tenant`` dicts), applied after
+    # the manifest
+    tenants: list = field(default_factory=list)
+    # a JSON tenant manifest: {"tenants": [{...}, ...]}
+    manifest: str = ""
+    # adapter pack capacity: slots in all (slot 0 is the reserved null
+    # adapter) and the largest adapter rank; shapes never change, so
+    # adding or removing a tenant writes a slot
+    adapter_slots: int = 8
+    adapter_rank: int = 16
+
+
+@dataclass
 class InferenceConfig:
     """Serving knobs of the ported slice (picotron_tpu_torch/inference/)."""
 
@@ -199,6 +223,16 @@ class InferenceConfig:
     # lands in both representations, so a page flips with no rewrite.
     # Excludes kv_cache_dtype "int8".
     kv_page_policy: str = "uniform"
+    # Multi-tenant serving (TenancyConfig).
+    tenancy: TenancyConfig = field(default_factory=TenancyConfig)
+
+    def __post_init__(self):
+        # from_dict hands the nested section through as a dict (unknown
+        # keys ignored, as Config.from_dict ignores them)
+        if isinstance(self.tenancy, dict):
+            known = {f.name for f in dataclasses.fields(TenancyConfig)}
+            self.tenancy = TenancyConfig(
+                **{k: v for k, v in self.tenancy.items() if k in known})
 
 
 # Inference options of the JAX package that this port does not implement
@@ -210,6 +244,15 @@ _UNPORTED_INFERENCE = {
     "overlap": False,
     "mixed_dispatch": False,
     "sample_on_device": False,
+}
+
+# The JAX package's serving chaos hooks (resilience.chaos.ServingChaos),
+# which the port's engine does not have yet, with their "off" values.
+_UNPORTED_SERVING_CHAOS = {
+    "chaos_dispatch_raise_round": 0,
+    "chaos_dispatch_fail_slot": -1,
+    "chaos_latency_round": 0,
+    "chaos_poison_logits_round": 0,
 }
 
 
@@ -398,12 +441,14 @@ class Config:
             known = {f.name for f in dataclasses.fields(dc)}
             return dc(**{k: v for k, v in section.items() if k in known})
 
-        inf_raw = raw.get("inference") or {}
-        for name, only in _UNPORTED_INFERENCE.items():
-            if name in inf_raw and inf_raw[name] != only:
-                raise ValueError(
-                    f"inference.{name}={inf_raw[name]!r} is not in the "
-                    f"PyTorch port yet (it serves {name}={only!r} only)")
+        for section, unported in (("inference", _UNPORTED_INFERENCE),
+                                  ("resilience", _UNPORTED_SERVING_CHAOS)):
+            sec_raw = raw.get(section) or {}
+            for name, only in unported.items():
+                if name in sec_raw and sec_raw[name] != only:
+                    raise ValueError(
+                        f"{section}.{name}={sec_raw[name]!r} is not in the "
+                        f"PyTorch port yet (it serves {name}={only!r} only)")
         sections = {f.name: f.default_factory for f in dataclasses.fields(cls)}
         cfg = cls(**{name: build(dc, raw.get(name) or {})
                      for name, dc in sections.items()})

@@ -3,7 +3,8 @@
 Both packages keep the same tree: ``{"embed", "layers": {leaf: [L, ...]},
 "final_norm", "lm_head"}`` with linear weights ``(in, out)``. So a JAX
 parameter tree, once fetched to numpy (``jax.tree.map(np.asarray, p)``),
-becomes the port's dict of tensors leaf by leaf, and back.
+becomes the port's dict of tensors leaf by leaf, and back. A JAX adapter
+pack's host master carries across the same way.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from picotron_tpu_torch.inference.tenancy import AdapterPack
 from picotron_tpu_torch.ops.quant_matmul import is_quant_weight
 from picotron_tpu_torch.train_step import param_leaves
 
@@ -54,6 +56,14 @@ def params_to_jax(params: dict) -> dict[str, Any]:
 
     return {k: (params_to_jax(v) if isinstance(v, dict) else conv(v))
             for k, v in params.items()}
+
+
+def adapter_pack_from_jax(host_arrays: dict):
+    """A JAX ``tenancy.AdapterPack``'s host master (its ``_host``: ``{leaf:
+    (a [L, T, in, R], b [L, T, R, out])}`` numpy arrays) -> the port's
+    ``AdapterPack`` holding the same slots, rank and values, so both
+    packages serve one pack."""
+    return AdapterPack.from_host(host_arrays)
 
 
 def _adam_node(state):

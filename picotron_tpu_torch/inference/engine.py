@@ -31,6 +31,13 @@ quantized by ``_pack_kv`` before ``insert``). The paged layout's
 ``kv_page_policy`` "hot_bf16" keeps both forms of every page and reads
 each page as one or the other by its holder count.
 
+With an adapter pack (``adapters=``, ``inference/tenancy.py``) every
+dispatch binds its rows' adapter slots into the parameter tree
+(``llama.bind_adapters``): the prefills take one id (``adapter_id``),
+``decode_block`` one per slot (``adapter_ids``), and every projection
+adds its rows' LoRA residuals through kernel H. An engine without a pack
+binds nothing.
+
 The JAX package compiles each of these as one jitted program with
 ``lax.scan`` over layers and steps; here they are Python loops that
 launch kernels eagerly. There is no flash-to-dense fallback: a kernel
@@ -43,7 +50,7 @@ import numpy as np
 import torch
 
 from picotron_tpu_torch.config import Config
-from picotron_tpu_torch.inference import kv_cache, paged_kv, sampling
+from picotron_tpu_torch.inference import kv_cache, paged_kv, sampling, tenancy
 from picotron_tpu_torch.models import llama
 from picotron_tpu_torch.ops.rope import precompute_rope, rope_at_positions
 from picotron_tpu_torch.utils import resolve_device, torch_dtype
@@ -64,7 +71,9 @@ class InferenceEngine:
     pages (``kv_layout``, ``kv_page_len``, ``kv_num_pages``,
     ``prefix_cache``, ``kv_page_policy``) come from ``cfg.inference``
     alone. ``device=None`` is the CUDA card (and raises without one); pass
-    ``device="cpu"`` for the plain PyTorch path on the CPU.
+    ``device="cpu"`` for the plain PyTorch path on the CPU. ``adapters``
+    (a ``tenancy.AdapterPack`` built for this model) makes it a
+    multi-tenant engine.
     """
 
     def __init__(self, cfg: Config, device=None, *, slots: int = 8,
@@ -73,7 +82,7 @@ class InferenceEngine:
                  prefill_chunk: int | None = None,
                  attend_impl: str | None = None,
                  weight_dtype: str | None = None,
-                 cache_dtype=None):
+                 cache_dtype=None, adapters=None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
         self.device = resolve_device(device)
         m, inf = self.cfg.model, self.cfg.inference
@@ -118,6 +127,17 @@ class InferenceEngine:
             raise ValueError(f"unknown cache_dtype {cache_dtype!r} (int8, "
                              f"'auto' or a torch dtype)")
         self._init_paged()
+        self.adapters = adapters
+        if adapters is not None:
+            if adapters.dims != tenancy.adapter_dims(m):
+                raise ValueError(
+                    f"adapter pack built for dims {adapters.dims} but this "
+                    f"model has {tenancy.adapter_dims(m)} — packs are "
+                    f"model-shape specific")
+            if adapters.rows != m.num_hidden_layers:
+                raise ValueError(
+                    f"adapter pack has {adapters.rows} layer rows; the "
+                    f"serving stack holds {m.num_hidden_layers}")
         # angle tables cover the whole cache window; decode gathers rows at
         # each slot's own offset
         self._cos, self._sin = precompute_rope(
@@ -238,6 +258,45 @@ class InferenceEngine:
             b *= 2
         return min(b, self.max_seq_len)
 
+    # ---- multi-tenant adapters (inference/tenancy.py) ----------------------
+
+    def bind_adapter_ids(self, params, adapter_ids, n: int):
+        """Wrap ``params`` with the adapter pack and this dispatch's
+        per-row adapter slots (``adapter_ids``: [n] host ints, or None for
+        all null). The ids are checked on the host and uploaded once; the
+        kernel reads them on the device. On an engine without a pack this
+        is the identity, and passing ids is an error (the caller thinks
+        tenants exist)."""
+        if self.adapters is None:
+            if adapter_ids is not None:
+                raise ValueError(
+                    "engine has no adapter pack (construct with "
+                    "adapters=tenancy.AdapterPack) but adapter ids were "
+                    "passed")
+            return params
+        if adapter_ids is None:
+            ids = np.zeros(n, np.int32)
+        else:
+            ids = np.asarray(adapter_ids, np.int32).reshape(-1)
+            if ids.shape[0] != n:
+                raise ValueError(
+                    f"adapter_ids has {ids.shape[0]} rows; this dispatch "
+                    f"carries {n}")
+            if (ids < 0).any() or (ids >= self.adapters.slots).any():
+                raise ValueError(
+                    f"adapter slot ids must be in [0, "
+                    f"{self.adapters.slots}); got {ids.tolist()}")
+        return llama.bind_adapters(
+            params, self.adapters.device_leaves(self.device),
+            self._tokens(ids))
+
+    def _bind_one(self, params, adapter_id):
+        """A one-row dispatch's binding (the prefills)."""
+        if self.adapters is None and adapter_id is None:
+            return params
+        return self.bind_adapter_ids(
+            params, None if adapter_id is None else [adapter_id], 1)
+
     # ---- model programs ---------------------------------------------------
 
     def _tokens(self, ids) -> torch.Tensor:
@@ -260,10 +319,12 @@ class InferenceEngine:
         return out
 
     @torch.no_grad()
-    def prefill(self, params, prompt_ids) -> tuple:
-        """One prompt through the full-sequence model. Returns (kv blocks
-        in cache storage form, ``{"k", "v"[, "k_scale", "v_scale"]}:
-        [L, 1, S_bucket, Hkv(, D)]``, last-token logits [1, V] fp32)."""
+    def prefill(self, params, prompt_ids, adapter_id=None) -> tuple:
+        """One prompt through the full-sequence model, under adapter slot
+        ``adapter_id`` on an engine with a pack. Returns (kv blocks in
+        cache storage form, ``{"k", "v"[, "k_scale", "v_scale"]}: [L, 1,
+        S_bucket, Hkv(, D)]``, last-token logits [1, V] fp32)."""
+        params = self._bind_one(params, adapter_id)
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -329,9 +390,11 @@ class InferenceEngine:
 
     @torch.no_grad()
     def prefill_chunked(self, params, cache, prompt_ids, slot: int,
-                        start: int = 0) -> tuple:
+                        start: int = 0, adapter_id=None) -> tuple:
         """Prefill one prompt as fixed-width chunks written straight into
-        ``slot`` (in place). Returns (cache, last-token logits [1, V])."""
+        ``slot`` (in place), under adapter slot ``adapter_id``. Returns
+        (cache, last-token logits [1, V])."""
+        params = self._bind_one(params, adapter_id)
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -372,34 +435,40 @@ class InferenceEngine:
         return cache, logits
 
     @torch.no_grad()
-    def prefill_paged(self, params, cache, prompt_ids, slot: int) -> tuple:
+    def prefill_paged(self, params, cache, prompt_ids, slot: int,
+                      adapter_id=None, cache_salt: str = "") -> tuple:
         """Paged admission of one prompt into ``slot`` (in place): share the
         longest radix-cached prefix (references only, no prefill for those
         tokens) and prefill the rest as chunks that attend over the shared
         pages. A miss takes the contiguous path's dispatches (the one-shot
         prefill at or under ``prefill_chunk``, chunks above it). Then the
-        prompt's pages are registered for the next request. Returns
-        (cache, last-token logits [1, V], dispatches, cached tokens)."""
+        prompt's pages are registered for the next request. The prefix
+        cache is searched and filled in ``cache_salt``'s domain (the
+        tenant: an adapter changes every row a page holds), and the
+        prefill runs under ``adapter_id``. Returns (cache, last-token
+        logits [1, V], dispatches, cached tokens)."""
         if self.paged is None:
             raise ValueError("prefill_paged needs kv_layout='paged'")
         ids = [int(t) for t in np.asarray(prompt_ids, np.int32).reshape(-1)]
         if not ids:
             raise ValueError("empty prompt")
-        cached = self.paged.match_prefix(slot, ids)
+        cached = self.paged.match_prefix(slot, ids, salt=cache_salt)
         if cached > 0:
             cache = paged_kv.set_length(self._sync_tables(cache), slot,
                                         cached)
             cache, logits = self.prefill_chunked(params, cache, ids, slot,
-                                                 start=cached)
+                                                 start=cached,
+                                                 adapter_id=adapter_id)
             n = -(-(len(ids) - cached) // self.prefill_chunk)
         elif len(ids) <= self.prefill_chunk:
-            kv, logits = self.prefill(params, ids)
+            kv, logits = self.prefill(params, ids, adapter_id=adapter_id)
             cache = self.insert(cache, kv, slot, len(ids))
             n = 1
         else:
-            cache, logits = self.prefill_chunked(params, cache, ids, slot)
+            cache, logits = self.prefill_chunked(params, cache, ids, slot,
+                                                 adapter_id=adapter_id)
             n = -(-len(ids) // self.prefill_chunk)
-        self.paged.register_prompt(slot, ids)
+        self.paged.register_prompt(slot, ids, salt=cache_salt)
         return cache, logits, n, cached
 
     def _decode_core(self, params, cache, tokens) -> torch.Tensor:
@@ -414,7 +483,7 @@ class InferenceEngine:
 
     @torch.no_grad()
     def decode_block(self, params, cache, tokens, generator, eos_id, budget,
-                     temperature, top_k, top_p) -> tuple:
+                     temperature, top_k, top_p, adapter_ids=None) -> tuple:
         """``decode_block_len`` tokens for every slot. ``tokens`` [slots]
         (each slot's current last token), ``eos_id`` [slots] (-1 = none),
         ``budget`` [slots] remaining tokens (0 for free slots) and the
@@ -426,8 +495,11 @@ class InferenceEngine:
         [slots]) as device tensors: ``counts[b]`` leading entries of row b
         are what slot b produced. Paged: every page the block can write is
         made the writer's own first, and the host lengths follow the
-        counts after."""
+        counts after. ``adapter_ids`` [slots] are the slots' adapter slots
+        on an engine with a pack (None: all null)."""
         dev = self.device
+        if self.adapters is not None or adapter_ids is not None:
+            params = self.bind_adapter_ids(params, adapter_ids, self.slots)
         if self.paged is not None:
             cache = self._pre_write(cache, self.decode_block_len,
                                     budget=budget)

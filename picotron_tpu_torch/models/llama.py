@@ -21,7 +21,9 @@ projections and the LM head go through ``matmul``, which dispatches on
 the weight leaf's form: a plain tensor is ``torch.matmul`` (as the JAX
 package leaves it to XLA), a quantized ``{"q", "s"}`` pair
 (``quantize_params``, serving with ``inference.weight_dtype: "int8"``)
-kernel G.
+kernel G, and an adapter-wrapped ``{"w", "a", "b", "ids"}`` leaf
+(``bind_adapters``, multi-tenant serving) its base leaf plus each row's
+LoRA residual through kernel H.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from picotron_tpu_torch.config import Config, ModelConfig
+from picotron_tpu_torch.ops import lora_matmul as lmm
 from picotron_tpu_torch.ops import quant_matmul as qmm
 from picotron_tpu_torch.ops.attention import sdpa
 from picotron_tpu_torch.ops.cross_entropy import (
@@ -170,22 +173,79 @@ def decoder_layer(lp: Params, h: torch.Tensor, cos, sin, cfg: Config,
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer leaves (a quantized pair
-    slices both of its tensors)."""
-    return {name: ({"q": w["q"][i], "s": w["s"][i]}
-                   if qmm.is_quant_weight(w) else w[i])
-            for name, w in params["layers"].items()}
+    """Layer ``i``'s slice of the stacked layer leaves: a quantized pair
+    slices both of its tensors; an adapter leaf slices its base leaf (a
+    tensor or a pair), its ``[L, T, in, R]`` / ``[L, T, R, out]`` pack
+    stacks and its ``[L, B]`` ids."""
+    def leaf(w):
+        if lmm.is_lora_weight(w):
+            return {"w": leaf(w["w"]), "a": w["a"][i], "b": w["b"][i],
+                    "ids": w["ids"][i]}
+        if qmm.is_quant_weight(w):
+            return {"q": w["q"][i], "s": w["s"][i]}
+        return w[i]
+
+    return {name: leaf(w) for name, w in params["layers"].items()}
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w``, dispatching on the weight leaf's form: a tensor runs
     the dense matmul; a quantized ``{"q": int8, "s": fp32}`` pair runs
     ``quant_matmul`` (kernel G on the card), whose output follows
-    ``x.dtype``. (The JAX package's adapter-wrapped LoRA leaf is not
-    ported yet.)"""
+    ``x.dtype``; an adapter leaf ``{"w", "a", "b", "ids"}`` recurses on
+    its base ``w`` and adds each row's fp32 LoRA residual (kernel H on
+    the card), cast to the base output's dtype, as the JAX package adds
+    it."""
+    if lmm.is_lora_weight(w):
+        base = matmul(x, w["w"])
+        return base + lmm.lora_matmul(x, w["a"], w["b"],
+                                      w["ids"]).to(base.dtype)
     if qmm.is_quant_weight(w):
         return qmm.quant_matmul(x, w["q"], w["s"])
     return x @ w
+
+
+def bind_adapters(params: Params, pack_leaves: dict,
+                  ids: torch.Tensor) -> Params:
+    """Wrap the seven projection leaves with the adapter pack and this
+    dispatch's per-row adapter ids (``ids`` [B] int32 on the params'
+    device): the step before every dispatch of an engine with a pack.
+    ``pack_leaves`` is ``AdapterPack.device_leaves()``: ``{leaf: {"a":
+    [L, T, in, R], "b": [L, T, R, out]}}``. The ids broadcast to [L, B]
+    (a view) so ``layer_params`` slices a [B] row per layer. Cheap: a
+    dict rebuilt around tensors that already exist."""
+    if lmm.is_lora_weight(params["layers"]["wq"]):
+        raise ValueError("params are already adapter-bound — bind once "
+                         "per dispatch from the BASE tree")
+    ids = ids.to(torch.int32).reshape(-1)
+    L = params["layers"]["attn_norm"].shape[0]
+    ids_l = ids[None, :].expand(L, ids.shape[0])
+    layers = dict(params["layers"])
+    for name in QUANT_WEIGHT_LEAVES:
+        layers[name] = {"w": layers[name], "a": pack_leaves[name]["a"],
+                        "b": pack_leaves[name]["b"], "ids": ids_l}
+    return {**params, "layers": layers}
+
+
+def merge_adapter(params: Params, leaves: dict) -> Params:
+    """The merged-weight reference tree ``W + A @ B``: TESTS AND PARITY
+    TOOLING ONLY (``generate --check-adapter-parity``, the chip smoke's
+    greedy gate). A pack-less engine fed this tree is the solo-tenant
+    oracle the segmented dispatch is held to. ``leaves`` maps leaf name
+    -> (a [L, in, r], b [L, r, out]) (``AdapterPack.random_leaves``'
+    form, numpy or tensors). Dense trees only: an int8 engine's oracle
+    merges into its fake-quant dense twin (``dequantize_params``)."""
+    layers = dict(params["layers"])
+    for name, (a, b) in leaves.items():
+        w = layers[name]
+        if qmm.is_quant_weight(w):
+            raise ValueError(
+                f"merge_adapter needs dense weights; {name} is quantized "
+                f"— dequantize_params first (the weight-parity recipe)")
+        a = torch.as_tensor(a, dtype=torch.float32, device=w.device)
+        b = torch.as_tensor(b, dtype=torch.float32, device=w.device)
+        layers[name] = (w.float() + torch.bmm(a, b)).to(w.dtype)
+    return {**params, "layers": layers}
 
 
 def quantize_params(params: Params) -> Params:

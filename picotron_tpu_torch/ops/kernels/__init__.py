@@ -8,6 +8,7 @@ under ``csrc/`` at the first launch on a CUDA tensor.
 from picotron_tpu_torch.ops.kernels import (
     decode_attention,
     flash_attention,
+    lora_matmul,
     quant_matmul,
     rmsnorm,
 )
@@ -31,10 +32,15 @@ SERVING_PAGED_INT8_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
                               decode_attention.KERNEL_PAGED_INT8)
 SERVING_MIXED_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
                          decode_attention.KERNEL_MIXED)
-# every kernel, in the order of the JAX package's Pallas kernels (A to G,
+# several tenants in one batch over paged bf16 pages: every projection of
+# the model body adds its rows' adapter residuals through H
+SERVING_TENANT_KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL,
+                          decode_attention.KERNEL_PAGED, lora_matmul.KERNEL)
+# every kernel, in the order of the JAX package's Pallas kernels (A to H,
 # C's variants beside C)
 KERNELS = (rmsnorm.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
            decode_attention.KERNEL_INT8, decode_attention.KERNEL_PAGED,
            decode_attention.KERNEL_PAGED_INT8, decode_attention.KERNEL_MIXED,
            rmsnorm.KERNEL_BWD, flash_attention.KERNEL_DQ,
-           flash_attention.KERNEL_DKV, quant_matmul.KERNEL)
+           flash_attention.KERNEL_DKV, quant_matmul.KERNEL,
+           lora_matmul.KERNEL)

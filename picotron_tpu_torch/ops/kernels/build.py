@@ -51,6 +51,7 @@ SIGNATURES = {
     "picotron_flash_decode_paged": [_P] * 6 + [_I] * 7 + [_F, _P],
     "picotron_flash_decode_paged_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
     "picotron_flash_decode_mixed": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "picotron_lora_matmul": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 

@@ -21,6 +21,14 @@ fake-quant reference (the int8 weights dequantized): on the CPU the
 greedy tokens must be identical; on the card, where the two matmuls round
 differently, it reports the first position where they differ and the
 reference's logit gap there.
+``--adapter RANK[:SEED[:SCALE]]`` serves every request through one
+seed-derived LoRA adapter (slot 1 of a two-slot pack, through kernel H on
+the card); ``--check-adapter-parity`` runs the batch again on a pack-less
+engine fed the merged tree ``W + A @ B`` (an int8 primary merges into its
+fake-quant twin), exact on the CPU and reported as above on the card. A
+config with ``inference.tenancy`` tenants or a manifest is refused: only
+the JAX package's ``tools/serve.py`` serves them, and the port has no
+serve.py yet.
 """
 
 from __future__ import annotations
@@ -43,6 +51,18 @@ def _build_requests(args) -> list:
                 top_p=args.top_p)
         for i, p in enumerate(prompts)
     ]
+
+
+def _build_adapter(args, cfg) -> tuple:
+    """``--adapter``'s two-slot pack with the seed's adapter in slot 1, and
+    that adapter's leaves (the merged reference's input)."""
+    from picotron_tpu_torch.inference import tenancy
+
+    pack = tenancy.AdapterPack(cfg.model, slots=2, rank=args.adapter_rank)
+    leaves = pack.random_leaves(args.adapter_rank, args.adapter_seed,
+                                args.adapter_scale)
+    pack.set_slot(1, leaves)
+    return pack, leaves
 
 
 def _load_weights(args, engine, weight_dtype: str):
@@ -70,9 +90,12 @@ def _first_difference(cfg, params, prompt, got, want) -> tuple:
     return i, float(row[want[i]] - row[got[i]])
 
 
-def _weight_parity(args, cfg, engine, results) -> int:
-    """``--check-weight-parity``: the same batch on a bf16 engine fed the
-    fake-quant reference. 1 on a CPU mismatch, else 0."""
+def _parity(args, cfg, engine, results, adapter_leaves=None) -> int:
+    """The parity gates: the same batch on a pack-less bf16 engine fed the
+    reference tree, which is the fake-quant tree (``--check-weight-parity``,
+    or an int8 primary under ``--check-adapter-parity``) with the
+    adapter merged in when ``adapter_leaves`` is given. 1 on a CPU
+    mismatch, else 0."""
     from picotron_tpu_torch.inference.batcher import ContinuousBatcher
     from picotron_tpu_torch.inference.engine import InferenceEngine
     from picotron_tpu_torch.models import llama
@@ -82,25 +105,34 @@ def _weight_parity(args, cfg, engine, results) -> int:
                            decode_block_len=args.decode_block_len,
                            prefill_chunk=args.prefill_chunk,
                            attend_impl=args.attend_impl, weight_dtype="bf16")
-    fakeq = llama.dequantize_params(_load_weights(args, eng2, "int8"),
-                                    torch_dtype(cfg.model.dtype))
-    results2 = ContinuousBatcher(eng2, fakeq, seed=args.seed).run(
+    ref = _load_weights(args, eng2, engine.weight_dtype)
+    if engine.weight_dtype == "int8":
+        ref = llama.dequantize_params(ref, torch_dtype(cfg.model.dtype))
+    gate, ours, theirs = "weight", "int8", "fake-quant reference"
+    if adapter_leaves is not None:
+        ref = llama.merge_adapter(ref, adapter_leaves)
+        gate, ours, theirs = ("adapter", "segmented adapter",
+                              "merged-weight reference")
+    results2 = ContinuousBatcher(eng2, ref, seed=args.seed).run(
         _build_requests(args))
     bad = [u for u in results if results[u].tokens != results2[u].tokens]
     if not bad:
-        log0(f"weight parity: int8 == fake-quant reference for "
-             f"{len(results)} requests")
+        log0(f"{gate} parity: {ours} == {theirs} for "
+             f"{len(results)} requests"
+             + (f" (rank={args.adapter_rank}, weights="
+                f"{engine.weight_dtype})" if adapter_leaves is not None
+                else ""))
         return 0
     if engine.device.type == "cpu":
-        print(f"FAILED: weight parity mismatch (int8 vs fake-quant "
-              f"bf16) for {bad}", file=sys.stderr)
+        print(f"FAILED: {gate} parity mismatch ({ours} vs {theirs}) for "
+              f"{bad}", file=sys.stderr)
         return 1
     for u in bad:
-        i, gap = _first_difference(eng2.cfg, fakeq, results[u].prompt,
+        i, gap = _first_difference(eng2.cfg, ref, results[u].prompt,
                                    results[u].tokens, results2[u].tokens)
-        log0(f"weight parity: [{u}] int8 and fake-quant streams first "
-             f"differ at token {i}; the reference's logit gap there is "
-             f"{gap:.4f} (matmuls round differently on the card)")
+        log0(f"{gate} parity: [{u}] {ours} and {theirs} streams "
+             f"first differ at token {i}; the reference's logit gap there "
+             f"is {gap:.4f} (matmuls round differently on the card)")
     return 0
 
 
@@ -163,16 +195,35 @@ def main(argv=None, device=None) -> int:
                          "through the dense matmul): on the CPU every "
                          "request's tokens must match; on the card the "
                          "first difference and its logit gap are reported")
+    ap.add_argument("--adapter", default=None,
+                    metavar="RANK[:SEED[:SCALE]]",
+                    help="serve every request through one seed-derived "
+                         "LoRA adapter (tenancy.AdapterPack, slot 1) "
+                         "over the base weights: the multi-tenant "
+                         "segmented dispatch with a single tenant")
+    ap.add_argument("--check-adapter-parity", action="store_true",
+                    help="run the batch again on an adapter-less engine "
+                         "fed the MERGED reference (W + A @ B; an int8 "
+                         "primary merges into its fake-quant twin): on "
+                         "the CPU every request's tokens must match; on "
+                         "the card the first difference and its logit "
+                         "gap are reported")
     args = ap.parse_args(argv)
     if not args.random_init:
         ap.error("pass --random-init (checkpoint loading is not ported yet)")
 
     from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference import tenancy
     from picotron_tpu_torch.inference.batcher import ContinuousBatcher
     from picotron_tpu_torch.inference.engine import InferenceEngine
     from picotron_tpu_torch.utils import log0
 
     cfg = Config.from_json(args.config)
+    if cfg.inference.tenancy.tenants or cfg.inference.tenancy.manifest:
+        ap.error("inference.tenancy tenants and manifests are served by "
+                 "tools/serve.py, which the PyTorch port does not have "
+                 "yet; generate serves one adapter with --adapter "
+                 "RANK[:SEED[:SCALE]]")
     if args.kv_cache_dtype is not None:
         cfg.inference.kv_cache_dtype = args.kv_cache_dtype
     if args.kv_layout is not None:
@@ -189,13 +240,44 @@ def main(argv=None, device=None) -> int:
         ap.error("--check-weight-parity is a greedy-only gate (fused vs "
                  "dense logits are allclose, not bit-equal; sampling can "
                  "flip at near-ties); drop --temperature")
+    if args.check_adapter_parity and args.adapter is None:
+        ap.error("--check-adapter-parity compares the segmented adapter "
+                 "dispatch against its merged-weight oracle; pass "
+                 "--adapter RANK[:SEED[:SCALE]]")
+    if args.check_adapter_parity and args.temperature != 0.0:
+        ap.error("--check-adapter-parity is a greedy-only gate (segmented "
+                 "vs merged logits are allclose, not bit-equal; sampling "
+                 "can flip at near-ties); drop --temperature")
+    if args.check_weight_parity and args.adapter is not None:
+        ap.error("--check-weight-parity's reference engine is "
+                 "adapter-less; run it without --adapter (adapter "
+                 "correctness has its own gate, --check-adapter-parity)")
+    if args.adapter is not None:
+        parts = str(args.adapter).split(":")
+        try:
+            args.adapter_rank = int(parts[0])
+            args.adapter_seed = int(parts[1]) if len(parts) > 1 else 0
+            args.adapter_scale = (float(parts[2]) if len(parts) > 2
+                                  else tenancy.DEFAULT_ADAPTER_SCALE)
+        except ValueError as e:
+            ap.error(f"bad --adapter spec {args.adapter!r} "
+                     f"(want RANK[:SEED[:SCALE]]): {e}")
+        if args.adapter_rank < 1:
+            ap.error("--adapter rank must be >= 1")
     t0 = time.perf_counter()
+    adapters = adapter_leaves = None
+    if args.adapter is not None:
+        adapters, adapter_leaves = _build_adapter(args, cfg)
     engine = InferenceEngine(cfg, device, slots=args.slots,
                              decode_block_len=args.decode_block_len,
                              prefill_chunk=args.prefill_chunk,
-                             attend_impl=args.attend_impl)
+                             attend_impl=args.attend_impl,
+                             adapters=adapters)
     params = _load_weights(args, engine, engine.weight_dtype)
     requests = _build_requests(args)
+    if adapters is not None:
+        for r in requests:
+            r.adapter_slot = 1
     setup_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -203,9 +285,9 @@ def main(argv=None, device=None) -> int:
     results = batcher.run(requests)
     gen_s = time.perf_counter() - t0
 
-    if args.check_weight_parity:
+    if args.check_weight_parity or args.check_adapter_parity:
         del params  # the reference engine builds its own tree
-        if _weight_parity(args, cfg, engine, results):
+        if _parity(args, cfg, engine, results, adapter_leaves):
             return 1
 
     n_tokens = 0

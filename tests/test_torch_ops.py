@@ -51,6 +51,7 @@ from picotron_tpu_torch.config import Config
 from picotron_tpu_torch.inference import kv_cache, sampling
 from picotron_tpu_torch.ops.kernels import decode_attention as kc
 from picotron_tpu_torch.ops.kernels import flash_attention as kb
+from picotron_tpu_torch.ops.kernels import lora_matmul as kh
 from picotron_tpu_torch.ops.kernels import rmsnorm as ka
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -447,6 +448,7 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
     monkeypatch.setattr(kb, "flash_attention_plain", boom)
     monkeypatch.setattr(kb, "flash_attention_bwd_plain", boom)
     monkeypatch.setattr(kc, "flash_decode_attention_plain", boom)
+    monkeypatch.setattr(kh, "lora_matmul_plain", boom)
     meta = dict(device="meta", dtype=torch.bfloat16)
     x = torch.empty(4, 64, **meta)
     with pytest.raises(ValueError, match="CUDA"):
@@ -467,6 +469,12 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
         kc.flash_decode_attention(q, q, q, torch.empty(1, device="meta",
                                                        dtype=torch.int32),
                                   0.125)
+    fp32 = dict(device="meta", dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):  # kernel H
+        kh.segmented_lora(torch.empty(2, 3, 64, **meta),
+                          torch.empty(4, 64, 8, **fp32),
+                          torch.empty(4, 8, 32, **fp32),
+                          torch.empty(2, device="meta", dtype=torch.int32))
     # and a CPU tensor takes the plain path without touching the build
     monkeypatch.undo()
     monkeypatch.setattr(
@@ -478,6 +486,10 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
     q = torch.ones(1, 16, 2, 8, requires_grad=True)
     kb.flash_attention(q, q, q).sum().backward()
     assert xg.grad.shape == xg.shape and q.grad.shape == q.shape
+    ids = torch.tensor([1, 0], dtype=torch.int32)
+    out = kh.segmented_lora(torch.ones(2, 3, 8), torch.ones(2, 8, 4),
+                            torch.ones(2, 4, 5), ids)
+    assert out.shape == (2, 3, 5) and bool((out[1] == 32.0).all())
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -493,7 +505,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  os.path.join("ops", "cross_entropy.py"),
                  os.path.join("ops", "quant_matmul.py"),
                  os.path.join("ops", "kernels", "quant_matmul.py"),
-                 os.path.join("inference", "paged_kv.py")):
+                 os.path.join("inference", "paged_kv.py"),
+                 os.path.join("ops", "lora_matmul.py"),
+                 os.path.join("ops", "kernels", "lora_matmul.py"),
+                 os.path.join("inference", "tenancy.py")):
         assert os.path.join(REPO, "picotron_tpu_torch", name) in files
     for path in files:
         with open(path) as f:
