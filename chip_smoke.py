@@ -6,11 +6,16 @@ Run from the root of a checkout. Phases, each of which must pass:
 
 1. the card's name and power limit (nvidia-smi), then the CUDA kernels
    built from this checkout's sources (build seconds printed, and each
-   kernel's registers and spills as ptxas reports them);
+   kernel's registers, static shared memory and spills as ptxas reports
+   them);
 2. every kernel against its plain PyTorch version on the card, in bf16, at
    the main paths' shapes plus a ragged and a GQA shape (B and C at
-   head_dim 64 and 128; G at every projection shape of Llama-2-7B; C's
-   int8 variant at its decode and chunk shapes): one JSON line per shape
+   head_dim 64 and 128, B also at S = 200, which no 64-row tile divides;
+   B with its LSE, E and F at the training shape, a ragged S and a GQA
+   shape at head_dim 64, and the GQA shape at 128; G at every projection
+   shape of Llama-2-7B; C's int8 variant at its decode and chunk shapes).
+   B (the forward) and F (dK/dV) run their products on the bf16 tensor
+   cores (wgmma), the rest on the fp32 pipes. One JSON line per shape
    with the kernel's time, the plain version's, one library call's (a
    yardstick only; the port never calls it) and the card's lower bound.
    The backward kernels' library yardstick is F.rms_norm and
@@ -234,7 +239,9 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel from ``nvcc -Xptxas -v`` output: its
-    name with template arguments, registers, and spill bytes."""
+    name with template arguments, registers, static shared memory (the
+    dynamic shared memory a launch asks for is in each source's layout),
+    and spill bytes."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -250,7 +257,9 @@ def _ptxas_summary(log: str) -> list:
             spill = line.strip()
         elif "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             out.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
+                       f"{smem.group(1) if smem else 0} bytes static smem, "
                        f"{spill}")
     return out
 
@@ -333,12 +342,13 @@ def _kernel_checks(torch, F) -> dict:
                 if hasattr(F, "rms_norm") else None),
                _bound((2 * rows * H + H) * 2, 0.0), main=rows == 8)
 
-    # B: causal prefill attention, [1, S, 32, D]; one GQA shape (g = 4);
-    # D = 64 (SmolLM) and D = 128 (Llama-2-7B)
+    # B: causal prefill attention, [1, S, 32, D]; one GQA shape (g = 4),
+    # one S that no 64-row tile divides (200); D = 64 (SmolLM) and D = 128
+    # (Llama-2-7B)
     for D, S, nh, nkv in ((D, S, nh, nkv) for D in (64, 128)
                           for S, nh, nkv in ((16, 32, 32), (48, 32, 32),
-                                             (512, 32, 32), (2048, 32, 32),
-                                             (512, 32, 8))):
+                                             (200, 32, 32), (512, 32, 32),
+                                             (2048, 32, 32), (512, 32, 8))):
         q, k, v = randn(1, S, nh, D), randn(1, S, nkv, D), randn(1, S, nkv, D)
         scale = D ** -0.5
         err = _check(f"flash_attention S={S} H={nh} Hkv={nkv}",
@@ -779,10 +789,9 @@ def _training_kernel_checks(torch, F, randn, record) -> None:
                main=rows == 8192)
 
     # B with its LSE, E and F: [4, 2048, 32, 64] (the training shape), a
-    # ragged S, and one GQA shape (g = 4)
-    for B, S, nh, nkv in ((4, 2048, 32, 32), (2, 130, 32, 32),
-                          (1, 1024, 32, 8)):
-        D = 64
+    # ragged S, one GQA shape (g = 4), and the GQA shape at head_dim 128
+    for B, S, nh, nkv, D in ((4, 2048, 32, 32, 64), (2, 130, 32, 32, 64),
+                             (1, 1024, 32, 8, 64), (1, 1024, 32, 8, 128)):
         scale = D ** -0.5
         q, k, v = randn(B, S, nh, D), randn(B, S, nkv, D), randn(B, S, nkv, D)
         do = randn(B, S, nh, D)

@@ -1,6 +1,8 @@
-// The block-level flash-attention loop shared by kernels B (prefill
-// flash attention, flash_attention.cu) and C (flash decode,
-// decode_attention.cu).
+// The block-level flash-attention loop of kernel C (flash decode,
+// decode_attention.cu) and its paged variants (paged_decode.cu), its
+// products on the fp32 pipes. Kernel B (prefill flash attention,
+// flash_attention.cu) runs on the tensor cores through wgmma_tile.cuh, so
+// no caller passes kRoundP = true or an lse (below).
 //
 // A block owns up to kRows query rows that all attend to the same K/V head
 // (one batch entry, one kv head). The caller fills, for each row, the
@@ -26,11 +28,10 @@
 // kRoundP, p is rounded to bf16 before the P @ V product (the training
 // flash kernel's p.astype(v.dtype)); l always sums the fp32 p. With a
 // non-null lse, row r also writes its log-sum-exp m + log(l) (fp32) at
-// lse[r]: the residual the training backward (flash_attention_bwd.cu)
-// re-derives P from.
+// lse[r]. C passes kRoundP = false and no lse.
 //
 // Where the keys and values come from is a template parameter, the tile
-// source: Bf16KV reads bf16 rows (kernels B and C); Int8KV reads int8 rows
+// source: Bf16KV reads bf16 rows (kernel C); Int8KV reads int8 rows
 // and their fp32 per-row scales and dequantizes each row in registers,
 // int8 -> fp32 x scale, before it enters the tile (C's int8 variant).
 // Paged<Bf16KV>, Paged<Int8KV> and MixedKV read a slot's keys out of a page

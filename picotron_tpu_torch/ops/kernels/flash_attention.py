@@ -1,6 +1,8 @@
 """Kernels B, E and F: the causal flash-attention forward
-(csrc/flash_attention.cu) and its backward (csrc/flash_attention_bwd.cu),
-with their plain versions.
+(csrc/flash_attention.cu) and its backward, dQ (csrc/flash_attention_bwd.cu)
+and dK/dV (csrc/flash_attention_bwd_dkv.cu), with their plain versions.
+B and F run their products on the bf16 tensor cores (wgmma), E on the fp32
+pipes.
 
 ``flash_attention`` is the wrapper the model's full-sequence path calls.
 Where autograd needs a gradient it goes through ``FlashAttentionFunction``:
@@ -40,7 +42,7 @@ KERNEL_DQ = build.Kernel(
     replaces="picotron_tpu/ops/pallas/flash_attention.py:223")
 KERNEL_DKV = build.Kernel(
     name="flash_attention_bwd_dkv", route="cuda",
-    source="picotron_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+    source="picotron_tpu_torch/ops/kernels/csrc/flash_attention_bwd_dkv.cu",
     replaces="picotron_tpu/ops/pallas/flash_attention.py:255")
 
 HEAD_DIMS = (64, 128)  # head_dim values the kernels are compiled for
