@@ -14,8 +14,12 @@ Run from the root of a checkout. Phases, each of which must pass:
    B with its LSE, E and F at the training shape, a ragged S and a GQA
    shape at head_dim 64, and the GQA shape at 128; G at every projection
    shape of Llama-2-7B; C's int8 variant at its decode and chunk shapes).
-   B (the forward) and F (dK/dV) run their products on the bf16 tensor
-   cores (wgmma), the rest on the fp32 pipes. One JSON line per shape
+   B (the forward), E (dQ) and F (dK/dV) run their products on the bf16
+   tensor cores (wgmma), the rest on the fp32 pipes. C's five variants
+   split their walk over the window across blocks and merge the splits in
+   a second launch; every C row names its split plan, and C is also held
+   at lengths that leave whole splits empty (0, 1, 129: those slots' rows
+   must come out exactly 0). One JSON line per shape
    with the kernel's time, the plain version's, one library call's (a
    yardstick only; the port never calls it) and the card's lower bound.
    The backward kernels' library yardstick is F.rms_norm and
@@ -48,7 +52,8 @@ Run from the root of a checkout. Phases, each of which must pass:
    ``picotron_tpu_torch.tools.generate`` command line on the same model,
    which must serve on the card without being told to;
 4. the serving requests once more under torch.profiler: where the device
-   time went, and the device's busy share of the wall time;
+   time went, the device's busy share of the wall time, and C's split and
+   merge kernels by name;
 5. the paged serving path: the SmolLM-1.7B model of phase 3 (8 slots,
    window 2048, 16-row pages, the pool auto-sized, the radix prefix cache
    on) serving a shared-prefix traffic of 8 requests (four under one
@@ -237,6 +242,29 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(torch, fn, iters: int = 10) -> float | None:
+    """The device time of one call of ``fn``: every kernel it launches,
+    summed from a torch.profiler trace of ``iters`` calls (no host time, so
+    a call whose wrapper costs more on the host than its kernels take on
+    the device is measured by its kernels); None if three traces in a row
+    hold no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ns = sum(e.duration_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if str(e.device_type()).endswith("CUDA"))
+        if ns > 0:
+            return ns / 1e6 / iters
+    return None
+
+
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel from ``nvcc -Xptxas -v`` output: its
     name with template arguments, registers, static shared memory (the
@@ -292,6 +320,36 @@ def _check(name, got, want, mask=None, atol=ATOL, rtol=RTOL) -> float:
     return float(err.max())
 
 
+# what C's rows add to their records: the split plan, and the kernels' and
+# the library call's device time (the wrapper times include the host's
+# cost of a call, which at decode is about that of the kernels)
+DEVICE_KEYS = ("split_plan", "device_ms", "library_device_ms")
+
+
+def _c_extra(torch, kc, run, lib, q, k, block_tables=None) -> dict:
+    """A C row's split plan and device times."""
+    return {"split_plan": _plan(kc, q, k, block_tables),
+            "device_ms": _device_ms(torch, run),
+            "library_device_ms": _device_ms(torch, lib)}
+
+
+def _plan(kc, q, k, block_tables=None) -> dict:
+    """C's split plan for a call (a function of its shapes alone)."""
+    n_splits, per = kc.plan_for(q, k, block_tables)
+    return {"n_splits": n_splits, "tiles_per_split": per,
+            "keys_per_tile": kc.TILE_KEYS}
+
+
+def _empty_rows_zero(name, got, lens, S) -> None:
+    """Rows that see no key (a slot whose length leaves every split
+    empty for them) must come out exactly 0."""
+    for b, L in enumerate(lens):
+        dead = max(0, min(S, S - L))  # rows at positions < 0
+        if dead and bool(got[b, :dead].float().abs().max() != 0):
+            raise AssertionError(f"{name}: slot {b}'s rows with no visible "
+                                 "key are not exactly 0")
+
+
 def _kernel_checks(torch, F) -> dict:
     """Phase 2: each kernel against its plain version; returns per-kernel
     records for the closing line (the main-path shape's times, the
@@ -327,7 +385,9 @@ def _kernel_checks(torch, F) -> dict:
         if main:
             (rec.setdefault(variant, {}) if variant else rec).update(
                 shape=shape, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound[0], bound_by=bound[1],
+                **{key: (extra or {})[key] for key in DEVICE_KEYS
+                   if key in (extra or {})})
 
     # A: RMSNorm over [rows, 2048] (decode: rows = slots; prefill: bucket)
     H, eps = 2048, 1e-5
@@ -369,22 +429,26 @@ def _kernel_checks(torch, F) -> dict:
 
     # C: flash decode against an 8-slot, 2048-row cache (decode S = 1 and a
     # 16-wide block), one slot empty; the 512-wide chunked-prefill shape;
-    # one GQA shape (g = 4); D = 64 and D = 128
+    # one GQA shape (g = 4); three slots whose lengths leave whole splits
+    # empty (0, 1, 129); D = 64 and D = 128
     T = 2048
     lens8 = [0, 1, 17, 128, 129, 700, 1500, 2048]
     for D, B, S, nh, nkv, lens in (
             (D, *shape) for D in (64, 128)
             for shape in ((8, 1, 32, 32, lens8), (8, 16, 32, 32, lens8),
-                          (1, 512, 32, 32, [1536]), (8, 1, 32, 8, lens8))):
+                          (1, 512, 32, 32, [1536]), (8, 1, 32, 8, lens8),
+                          (3, 1, 32, 32, [0, 1, 129]))):
         q = randn(B, S, nh, D)
         k, v = randn(B, T, nkv, D), randn(B, T, nkv, D)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         scale = D ** -0.5
         live = lengths > 0  # an empty slot's rows are not compared
-        err = _check(f"flash_decode B={B} S={S} H={nh} Hkv={nkv}",
-                     kc.flash_decode_attention(q, k, v, lengths, scale),
+        got = kc.flash_decode_attention(q, k, v, lengths, scale)
+        err = _check(f"flash_decode B={B} S={S} H={nh} Hkv={nkv}", got,
                      kc.flash_decode_attention_plain(q, k, v, lengths,
                                                      scale), mask=live)
+        _empty_rows_zero(f"flash_decode B={B} S={S} lengths={lens}", got,
+                         lens, S)
         g = nh // nkv
         pos_q = lengths[:, None] - S + torch.arange(S, device=dev)[None]
         amask = (torch.arange(T, device=dev)[None, None]
@@ -396,17 +460,18 @@ def _kernel_checks(torch, F) -> dict:
                       for s in range(S))
         keys_read = sum(min(L, T) for L in lens)
         nbytes = 2 * keys_read * nkv * D * 2 + 2 * B * S * nh * D * 2
+        run = lambda: kc.flash_decode_attention(  # noqa: E731
+            q, k, v, lengths, scale)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=amask, scale=scale)
         record(kc.KERNEL, {"B": B, "S": S, "H": nh, "Hkv": nkv, "T": T,
-                           "D": D, "lengths": lens}, err,
-               _time_ms(lambda: kc.flash_decode_attention(q, k, v, lengths,
-                                                          scale)),
+                           "D": D, "lengths": lens}, err, _time_ms(run),
                _time_ms(lambda: kc.flash_decode_attention_plain(
                    q, k, v, lengths, scale)),
-               _time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, attn_mask=amask, scale=scale)),
-               _bound(nbytes, 4 * D * nh * visible),
+               _time_ms(lib), _bound(nbytes, 4 * D * nh * visible),
                main=(B, S, nkv) == (8, 1, 32),
-               variant="d128" if D == 128 else None)
+               variant="d128" if D == 128 else None,
+               extra=_c_extra(torch, kc, run, lib, q, k))
     _int8_kernel_checks(torch, F, randn, record)
     _paged_kernel_checks(torch, F, randn, record)
     _training_kernel_checks(torch, F, randn, record)
@@ -465,18 +530,20 @@ def _int8_kernel_checks(torch, F, randn, record) -> None:
     for B, S, nh, nkv, lens in ((8, 1, 32, 32, lens8),
                                 (1, 512, 32, 32, [1024]),
                                 (1, 512, 32, 32, [900]),
-                                (8, 1, 32, 8, lens8)):
+                                (8, 1, 32, 8, lens8),
+                                (3, 1, 32, 32, [0, 1, 129])):
         q = randn(B, S, nh, D)
         kq, ks = quantize_kv(randn(B, T, nkv, D))
         vq, vs = quantize_kv(randn(B, T, nkv, D))
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         scale = D ** -0.5
         live = lengths > 0
-        err = _check(f"flash_decode_int8 B={B} S={S} H={nh} Hkv={nkv}",
-                     kc.flash_decode_attention(q, kq, vq, lengths, scale,
-                                               ks, vs),
+        got = kc.flash_decode_attention(q, kq, vq, lengths, scale, ks, vs)
+        err = _check(f"flash_decode_int8 B={B} S={S} H={nh} Hkv={nkv}", got,
                      kc.flash_decode_attention_int8_plain(
                          q, kq, vq, lengths, scale, ks, vs), mask=live)
+        _empty_rows_zero(f"flash_decode_int8 B={B} S={S} lengths={lens}",
+                         got, lens, S)
         g = nh // nkv
         pos_q = lengths[:, None] - S + torch.arange(S, device=dev)[None]
         amask = (torch.arange(T, device=dev)[None, None]
@@ -489,17 +556,18 @@ def _int8_kernel_checks(torch, F, randn, record) -> None:
                       for s in range(S))
         keys_read = sum(min(L, T) for L in lens)
         nbytes = 2 * keys_read * nkv * (D + 4) + 2 * B * S * nh * D * 2
+        run = lambda: kc.flash_decode_attention(  # noqa: E731
+            q, kq, vq, lengths, scale, ks, vs)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=amask, scale=scale)
         record(kc.KERNEL_INT8, {"B": B, "S": S, "H": nh, "Hkv": nkv, "T": T,
-                                "D": D, "lengths": lens}, err,
-               _time_ms(lambda: kc.flash_decode_attention(
-                   q, kq, vq, lengths, scale, ks, vs)),
+                                "D": D, "lengths": lens}, err, _time_ms(run),
                _time_ms(lambda: kc.flash_decode_attention_int8_plain(
                    q, kq, vq, lengths, scale, ks, vs)),
-               _time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, attn_mask=amask, scale=scale)),
-               _bound(nbytes, 4 * D * nh * visible),
-               main=(B, S, nkv) == (8, 1, 32))
-        del q, kq, vq, ks, vs, kt, vt, qt
+               _time_ms(lib), _bound(nbytes, 4 * D * nh * visible),
+               main=(B, S, nkv) == (8, 1, 32),
+               extra=_c_extra(torch, kc, run, lib, q, kq))
+        del q, kq, vq, ks, vs, kt, vt, qt, got
         torch.cuda.empty_cache()
 
 
@@ -673,6 +741,7 @@ def _paged_kernel_checks(torch, F, randn, record) -> None:
                    library="F.scaled_dot_product_attention over the "
                            "gathered window",
                    extra={"max_slot_rel_l2": rel,
+                          **_c_extra(torch, kc, run, lib, q, k, bt),
                           "tolerance": {"atol": PAGED_ATOL,
                                         "rtol": PAGED_RTOL,
                                         "slot_rel_l2": PAGED_SLOT_REL_L2}})
@@ -915,7 +984,12 @@ def _profile(torch, run, path: str) -> dict:
         "path": path, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall * 1e3),
         "top": [{"name": name[:90], "calls": calls[name],
-                 "device_ms": dev_ms[name]} for name in top]}}), flush=True)
+                 "device_ms": dev_ms[name]} for name in top],
+        # kernel C's split walks and their merge, whatever their rank
+        "decode_attention": [{"name": name[:90], "calls": calls[name],
+                              "device_ms": dev_ms[name]}
+                             for name in sorted(dev_ms)
+                             if "flash_decode" in name]}}), flush=True)
     return dev_ms
 
 
@@ -1732,7 +1806,8 @@ def main() -> int:
                                      for path, counts in by_path.items()},
                 **{key: records[k.name].get(key) for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "shape", "lse", "d128", "chunk")}}
+                    "library_ms", "shape", *DEVICE_KEYS, "lse", "d128",
+                    "chunk")}}
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Kernel E: dQ of the causal flash attention, and delta, written by hand
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), its products on the bf16 tensor cores.
 //
 // Replaces picotron_tpu/ops/pallas/flash_attention.py::_bwd_dq_kernel
 // (:223), reached through _bwd (:295). Same function: with P re-derived
@@ -8,113 +8,75 @@
 //
 //   dS = P * (dP - delta) * scale,  dQ = bf16(dS) @ K,
 //
-// the rounding point of the Pallas body (dS to bf16 before the dQ
-// product), fp32 accumulators, bf16 output. Kernel F (dK, dV) is
-// flash_attention_bwd_dkv.cu and reads the delta this kernel writes.
+// bf16 . bf16 products summed in fp32, dS rounded to bf16 before the dQ
+// product (the Pallas body's rounding point, :233-248), fp32 accumulators,
+// bf16 output: only the order of the fp32 sums differs. Kernel F (dK, dV)
+// is flash_attention_bwd_dkv.cu and reads the delta this kernel writes.
 //
-// What bounds it on this card: at the training shape [4, 2048, 32, 64]
-// the operations, 6 * D * H * S^2 / 2 (three products over the causal
-// half) per batch entry, against bytes of about 6 * H * S * D * 2. This
-// first version runs its products on the fp32 pipes, not the tensor cores
-// (67 TFLOP/s of fp32 FMA, not 989 of bf16); the tensor cores are later
-// work, as kernels B and F have them.
+// What bounds it on this card: operations, the three products over the
+// causal half, 6 * D * H * S (S + 1) / 2 per batch entry; at the training
+// shape [4, 2048, 32, 64] that is 103 GFLOP, 0.10 ms at 989 TFLOP/s.
 //
-// Design: 64 query rows by 64 keys, 128 threads. In the score phase
-// thread t owns key t % 64 and every other row (rows of parity t / 64),
-// holding its key's K row (then its V row) in registers while the query
-// and dO rows are read from shared memory as broadcasts. In the product
-// phase thread (d = t % D, r0 = t / D) owns output column d of rows r0,
-// r0 + 128 / D, ...; each accumulator lives in shared memory, owned by
-// one thread, so there is no race and no atomic.
+// Design: one warpgroup (4 warps, 128 threads) per (batch, query head, 64
+// query rows); the block's queries are the M side of every product
+// (wgmma_tile.cuh has the tile and register layouts).
+//   - The Q and dO tiles are copied to shared memory once, under the
+//     128-byte swizzle; K and V tiles of 64 keys stream through a 2-stage
+//     cp.async ring, tile j + 1 in flight while tile j is computed.
+//   - S = Q K^T and dP = dO V^T are wgmma m64n64k16 products (both
+//     operands K-major in shared memory) into fp32 registers.
+//   - dS = exp(S * scale - lse) * (dP - delta) * scale is formed in those
+//     registers, rounded to bf16 and handed over (c_to_a) as the register A
+//     operand of dQ += dS K, whose B operand is the same K tile read
+//     MN-major: nothing is transposed and no score touches shared memory.
+//   - dQ accumulates in fp32 registers from key tile 0 up to the diagonal
+//     and is written once, in bf16.
+//   - delta = rowsum(dO * O) is computed in fp32 once per row at the
+//     block's start and written to a [B, H, S] buffer, which F then reads:
+//     F must run after E on the same stream.
+//   - Only the diagonal tile is masked (it is also the ragged last key
+//     tile, whose keys past S every row < S masks). The grid runs the
+//     heaviest query tiles (the last, which walk every key tile) first.
 //
-// One block per (batch, query head, 64-row query tile). It walks the KV
-// tiles up to the diagonal (causal_kv_blocks :74) and writes dQ. It also
-// computes delta for its rows and writes it to a [B, H, S] fp32 buffer,
-// which F then reads: delta is part of E, and F must run after E on the
-// same stream.
-//
-// Ragged S: the last query tile and the last key tile may be partial.
-// Rows past S load as zeros, keys past S load as zeros and are masked, so
-// nothing reads past the end (the Pallas kernel assumes blocks divide S,
-// _pick_block :67).
+// Same contract as B and F: D in {64, 128}, any S >= 1 (rows and keys past
+// S load as zeros and are neither read nor written), compact GQA (kv head =
+// h / (H / Hkv)), any B.
 
-#include "attention_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
-using picotron::kThreads;
-using picotron::store8;
-using picotron::unpack8;
-using picotron::warp_sum;
+using namespace picotron::wg;
 
-constexpr int kR = 64;   // query rows per tile
-constexpr int kT = 64;   // keys per tile
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowPar = kThreads / kT;  // row parities in the score phase
-static_assert(kThreads % kT == 0, "score phase: threads per key");
-static_assert(kR == kT, "load_rows fills query and key tiles alike");
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct SmemDq {
-  float q[kR][D];     // query rows, fp32
-  float dout[kR][D];  // dO rows, fp32
-  float k[kT][D];     // the K tile, fp32
-  float ds[kR][kT];   // p, then bf16(dS)
-  float dq[kR][D];    // dQ accumulators
-  float lse[kR];
-  float delta[kR];
+struct Layout {  // byte offsets from the 1024-aligned base
+  static constexpr int kTile = tile_bytes<D>();  // 64 rows of one tensor
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kTile;
+  static constexpr int kK = 2 * kTile;                 // [kStages] tiles
+  static constexpr int kV = kK + kStages * kTile;      // [kStages] tiles
+  static constexpr int kLse = kV + kStages * kTile;    // [64] fp32
+  static constexpr int kDelta = kLse + kRows * 4;      // [64] fp32
+  static constexpr int kBytes = kDelta + kRows * 4 + 1024;
 };
 
-// Rows [s0, s0 + nr) of one head of a [B, S, heads, D] tensor into a
-// [kR][D] fp32 tile (rows >= nr zero); head0 is the element offset of row
-// 0's vector, row_stride the elements between rows.
-template <int D>
-__device__ __forceinline__ void load_rows(float (*dst)[D],
-                                          const __nv_bfloat16* src,
-                                          size_t head0, size_t row_stride,
-                                          int nr) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kR * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const uint4 u = r < nr ? *reinterpret_cast<const uint4*>(
-                                 src + head0 + r * row_stride + c * 8)
-                           : make_uint4(0u, 0u, 0u, 0u);
-    store8(&dst[r][c * 8], u);
-  }
-}
-
-// One key's row of K or V (zeros past the end) into registers.
-template <int D>
-__device__ __forceinline__ void load_key(float* dst,
-                                         const __nv_bfloat16* src,
-                                         bool valid) {
-  if (valid) {
-    const uint4* p = reinterpret_cast<const uint4*>(src);
+// the fp32 dot product of 8 bf16 pairs, added to acc in order
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b,
+                                      float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) unpack8(p[c], &dst[c * 8]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < D; ++c) dst[c] = 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ float dot_row(const float* row, const float* reg) {
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(&row[c]);
-    acc += a.x * reg[c] + a.y * reg[c + 1] + a.z * reg[c + 2] +
-           a.w * reg[c + 3];
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc += u.x * w.x;
+    acc += u.y * w.y;
   }
   return acc;
 }
 
-// E: dQ and delta.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
@@ -124,96 +86,177 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse,
                     __nv_bfloat16* __restrict__ dq,
-                    float* __restrict__ delta, int S, int H, int Hkv,
+                    float* __restrict__ delta, int B, int S, int H, int Hkv,
                     float scale) {
+  using L = Layout<D>;
+  constexpr int kNB = D / 64;  // 64-column blocks of the head dim
+  constexpr int kDK = D / 16;  // 16-deep steps over the head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemDq<D>& sm = *reinterpret_cast<SmemDq<D>*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int s0 = blockIdx.x * kR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  unsigned char* sm = align1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(sm + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(sm + L::kDelta);
+
+  const int nq = (S + kRows - 1) / kRows;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x) / (B * H);
+  const int bh = static_cast<int>(blockIdx.x) % (B * H);
+  const int h = bh % H, b = bh / H;
   const int kvh = h / (H / Hkv);
-  const int nr = min(kR, S - s0);
+  const int s0 = qt * kRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, c = 2 * (lane & 3);
+
   const size_t q_stride = static_cast<size_t>(H) * D;
-  const size_t q0 = (static_cast<size_t>(b) * S + s0) * q_stride +
-                    static_cast<size_t>(h) * D;
-  const size_t row0 = (static_cast<size_t>(b) * H + h) * S + s0;
-
-  load_rows<D>(sm.q, q, q0, q_stride, nr);
-  load_rows<D>(sm.dout, dout, q0, q_stride, nr);
-  for (int i = tid; i < kR * D; i += kThreads) (&sm.dq[0][0])[i] = 0.f;
-  __syncthreads();
-  // delta = rowsum(dO * O) in fp32, one warp per row
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int r = warp; r < nr; r += kWarps) {
-    float acc = 0.f;
-    for (int d = lane; d < D; d += 32)
-      acc += sm.dout[r][d] * __bfloat162float(o[q0 + r * q_stride + d]);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      sm.delta[r] = acc;
-      sm.lse[r] = lse[row0 + r];
-      delta[row0 + r] = acc;
-    }
-  }
-  __syncthreads();
-
   const size_t kv_stride = static_cast<size_t>(Hkv) * D;
-  const size_t kv0 = static_cast<size_t>(b) * S * kv_stride +
-                     static_cast<size_t>(kvh) * D;
-  const int kk = tid % kT;      // this thread's key in the tile
-  const int rp = tid / kT;      // and its row parity
-  const int d = tid % D;        // product phase: output column
-  const int r0 = tid / D;       // first row
-  constexpr int kStep = kThreads / D;
-  const int n_tiles = (s0 + nr - 1) / kT + 1;  // tiles up to the diagonal
-  float reg[D];
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int t0 = tile * kT;
-    const int key = t0 + kk;
-    const bool key_ok = key < S;
-    load_rows<D>(sm.k, k, kv0 + t0 * kv_stride, kv_stride, min(kT, S - t0));
-    // p = exp(q.k * scale - lse), 0 where masked
-    load_key<D>(reg, k + kv0 + key * kv_stride, key_ok);
-    for (int r = rp; r < nr; r += kRowPar) {
-      const float s = dot_row<D>(sm.q[r], reg) * scale;
-      sm.ds[r][kk] =
-          key_ok && key <= s0 + r ? expf(s - sm.lse[r]) : 0.f;
-    }
-    // dS = p * (dO.v - delta) * scale, rounded to bf16 for the dQ product
-    load_key<D>(reg, v + kv0 + key * kv_stride, key_ok);
-    for (int r = rp; r < nr; r += kRowPar) {
-      const float dp = dot_row<D>(sm.dout[r], reg);
-      sm.ds[r][kk] = round_bf16(sm.ds[r][kk] * (dp - sm.delta[r]) * scale);
-    }
-    __syncthreads();
-    // dQ += bf16(dS) @ K
-    for (int r = r0; r < nr; r += kStep) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int t = 0; t < kT; ++t) acc += sm.ds[r][t] * sm.k[t][d];
-      sm.dq[r][d] += acc;
-    }
-    __syncthreads();
-  }
-  for (int r = r0; r < nr; r += kStep)
-    dq[q0 + r * q_stride + d] = __float2bfloat16(sm.dq[r][d]);
-}
+  const size_t q_off = static_cast<size_t>(b) * S * q_stride +
+                       static_cast<size_t>(h) * D;
+  const size_t kv_off = static_cast<size_t>(b) * S * kv_stride +
+                        static_cast<size_t>(kvh) * D;
+  const __nv_bfloat16* kh = k + kv_off;
+  const __nv_bfloat16* vh = v + kv_off;
+  const size_t rows = (static_cast<size_t>(b) * H + h) * S;  // lse, delta
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes) {
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int n_tiles = qt + 1;  // key tiles up to the diagonal
+  load_tile<D>(sm + L::kQ, q + q_off, q_stride, s0, S);
+  load_tile<D>(sm + L::kDO, dout + q_off, q_stride, s0, S);
+  load_tile<D>(sm + L::kK, kh, kv_stride, 0, S);
+  load_tile<D>(sm + L::kV, vh, kv_stride, 0, S);
+  cp_async_commit();
+
+  // delta = rowsum(dO * O) in fp32, two threads a row, while the first
+  // copies are in flight; rows past S get delta 0 and lse 0 (their dS is 0)
+  {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    float acc = 0.f;
+    if (s0 + r < S) {
+      const size_t at = q_off + static_cast<size_t>(s0 + r) * q_stride +
+                        half * (D / 2);
+      const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
+      const uint4* op = reinterpret_cast<const uint4*>(o + at);
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i) acc = dot8(dp[i], op[i], acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = s0 + r < S ? lse[rows + s0 + r] : 0.f;
+      if (s0 + r < S) delta[rows + s0 + r] = acc;
+    }
+  }
+  __syncthreads();
+  // rows gr and gr + 8 of the warp's 16: their lse (log2 units) and delta
+  const int rl = warp * 16 + gr;
+  const float l2_0 = lse_s[rl] * kLog2e, l2_1 = lse_s[rl + 8] * kLog2e;
+  const float dl0 = delta_s[rl], dl1 = delta_s[rl + 8];
+  const int row0 = s0 + rl;  // query position of rows gr, gr + 8
+  const float sl2 = scale * kLog2e;
+
+  float acc[kNB][8][4];  // dQ, 64-column block by block
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile<D>(sm + L::kK + (st ^ 1) * L::kTile, kh, kv_stride,
+                   (j + 1) * kRows, S);
+      load_tile<D>(sm + L::kV + (st ^ 1) * L::kTile, vh, kv_stride,
+                   (j + 1) * kRows, S);
+      cp_async_commit();
+      cp_async_wait_for_wgmma<1>();
+    } else {
+      cp_async_wait_for_wgmma<0>();
+    }
+    __syncthreads();
+    const unsigned char* ks = sm + L::kK + st * L::kTile;
+    const unsigned char* vs = sm + L::kV + st * L::kTile;
+
+    // S = Q K^T and dP = dO V^T: 64 rows x 64 keys
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      wgmma_ss(s, desc_k(sm + L::kQ, kk), desc_k(ks, kk), kk > 0);
+      wgmma_ss(dp, desc_k(sm + L::kDO, kk), desc_k(vs, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(s * scale - lse), 0 where the key follows the query (only on
+    // the diagonal tile); dS = P (dP - delta) scale
+    const bool diag = j == qt;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * kRows + n * 8 + c + e;
+        float p0 = exp2f(s[n][e] * sl2 - l2_0);
+        float p1 = exp2f(s[n][2 + e] * sl2 - l2_1);
+        if (diag) {
+          if (key > row0) p0 = 0.f;
+          if (key > row0 + 8) p1 = 0.f;
+        }
+        dp[n][e] = p0 * (dp[n][e] - dl0) * scale;
+        dp[n][2 + e] = p1 * (dp[n][2 + e] - dl1) * scale;
+      }
+    }
+
+    // dQ += bf16(dS) K: the registers are the A operand, the contraction
+    // runs over the tile's 64 keys (K read MN-major)
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) c_to_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_regs(acc[nb]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        wgmma_rs(acc[nb], da[kk], desc_mn(ks, kk, nb), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_regs(acc[nb]);
+    __syncthreads();  // this stage is free for tile j + 2
+  }
+
+  __nv_bfloat16* dqh = dq + q_off;
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = nb * 64 + n * 8 + c;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(dqh + row0 * q_stride + col) =
+            __floats2bfloat162_rn(acc[nb][n][0], acc[nb][n][1]);
+      if (row0 + 8 < S)
+        *reinterpret_cast<__nv_bfloat162*>(dqh + (row0 + 8) * q_stride +
+                                           col) =
+            __floats2bfloat162_rn(acc[nb][n][2], acc[nb][n][3]);
+    }
+  }
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* dq, void* delta,
               int B, int S, int H, int Hkv, float scale, cudaStream_t st) {
-  const int smem = static_cast<int>(sizeof(SmemDq<D>));
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem);
+  constexpr int smem = Layout<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S + kR - 1) / kR, H, B);
+  const dim3 grid(((S + kRows - 1) / kRows) * B * H);
   flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -221,7 +264,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<__nv_bfloat16*>(dq),
-      static_cast<float*>(delta), S, H, Hkv, scale);
+      static_cast<float*>(delta), B, S, H, Hkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

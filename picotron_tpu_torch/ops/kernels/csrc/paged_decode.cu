@@ -28,40 +28,41 @@
 // What bounds it: bytes, as for contiguous C. A decode step reads every
 // live K/V row once, 2 * sum_b(len_b) * Hkv * D * 2 bytes in bf16 and
 // 2 * sum_b(len_b) * Hkv * (D + 4) in int8, for about one operation per
-// byte. Pages add the table: max_pages * 4 bytes per (slot, kv head, row
-// block), read once per 128-key tile into shared memory.
+// byte. Pages add the table: the entries a split spans, once per (slot, kv
+// head, row block, split), read into shared memory.
 //
-// Design: attend_rows_kv of attention_tile.cuh, unchanged, with a paged
-// tile source (Paged<Bf16KV>, Paged<Int8KV>, MixedKV): one block per (slot,
-// kv head, 64 folded query rows), walking only the tiles that hold a
-// visible key; at each tile the block copies the tile's page ids (and, for
-// mixed pages, their flags) into shared memory, and every key load goes
-// through them. On the same rows each variant is bit for bit its
-// contiguous twin, since the arithmetic is the same code.
+// Design: attend_split of attention_tile.cuh, the split walk of contiguous
+// C, with a paged tile source (Paged<Bf16KV>, Paged<Int8KV>, MixedKV): one
+// block per (split, row block, kv head, slot), walking only the tiles of
+// its split that hold a visible key; at its start the block copies its
+// split's page ids (and, for mixed pages, their flags) into shared memory,
+// and every key copy goes through them; a second launch merges the splits.
+// The plan (n_splits) is the contiguous call's for the same window
+// (max_pages * page_len keys), so on the same rows each variant is bit for
+// bit its contiguous twin: the arithmetic is the same code.
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
 namespace {
 
 using picotron::Bf16KV;
-using picotron::fold_rows;
 using picotron::Int8KV;
-using picotron::kKeys;
+using picotron::kChunkRows;
 using picotron::kMinPageLen;
-using picotron::kRows;
-using picotron::kThreads;
+using picotron::kSmallRows;
+using picotron::MixedKV;
 using picotron::PageMap;
-using picotron::Smem;
-
-constexpr int kMaxTilePages = kKeys / kMinPageLen;
+using picotron::Paged;
+using picotron::Partials;
 
 // The pointers and sizes every variant shares; one per launch.
 struct PagedArgs {
   const __nv_bfloat16* q;
   const int* block_tables;  // [B, max_pages]
   const int* lengths;       // [B]
-  __nv_bfloat16* o;
-  int S, H, Hkv, max_pages, page_shift;
+  int S, H, Hkv, max_pages, page_shift, n_splits, tiles_per_split;
   float scale;
 };
 
@@ -71,11 +72,18 @@ constexpr int kBf16 = 0;
 constexpr int kInt8 = 1;
 constexpr int kMixed = 2;
 
+template <int V>
+using SourceOf = std::conditional_t<
+    V == kBf16, Paged<Bf16KV>,
+    std::conditional_t<V == kInt8, Paged<Int8KV>, MixedKV>>;
+
 // kv / kq: the bf16 and int8 pools (the one the variant reads); ks / vs:
-// the scale pools; page_quant: the mixed variant's flags.
-template <int D, int V>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_paged_kernel(PagedArgs a, const void* __restrict__ k,
+// the scale pools; page_quant: the mixed variant's flags. Grid (row blocks
+// x n_splits, Hkv, B): split fastest.
+template <int D, int kR, int V>
+__global__ void __launch_bounds__(picotron::block_threads(kR))
+flash_decode_paged_kernel(PagedArgs a, Partials ws,
+                          const void* __restrict__ k,
                           const void* __restrict__ v,
                           const int8_t* __restrict__ kq,
                           const int8_t* __restrict__ vq,
@@ -83,58 +91,60 @@ flash_decode_paged_kernel(PagedArgs a, const void* __restrict__ k,
                           const float* __restrict__ vs,
                           const int* __restrict__ page_quant) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
-  __shared__ int tile_pages[kMaxTilePages];
-  __shared__ int tile_quant[kMaxTilePages];
+  auto& sm = *reinterpret_cast<picotron::Smem<D, kR>*>(smem_raw);
+  const int split = static_cast<int>(blockIdx.x) % a.n_splits;
+  const int row0 = static_cast<int>(blockIdx.x) / a.n_splits * kR;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  int max_pos;
-  const int nr = fold_rows<D>(sm, b, kvh, blockIdx.x * kRows, a.S, a.H,
-                              a.Hkv, a.lengths[b], max_pos);
   const size_t stride = static_cast<size_t>(a.Hkv) * D;
   const size_t hkv = static_cast<size_t>(a.Hkv);
   const PageMap map{a.block_tables + static_cast<size_t>(b) * a.max_pages,
-                    tile_pages, a.max_pages, a.page_shift};
+                    sm.pages, a.max_pages, a.page_shift, 0};
   const int n_keys = a.max_pages << a.page_shift;
-  if constexpr (V == kBf16) {
-    const auto* kb = static_cast<const __nv_bfloat16*>(k);
-    const auto* vb = static_cast<const __nv_bfloat16*>(v);
-    const picotron::Paged<Bf16KV> src{
-        Bf16KV{kb + kvh * D, vb + kvh * D, stride}, map};
-    picotron::attend_rows_kv<D, false>(sm, nr, max_pos, a.q, src, a.o,
-                                       n_keys, a.scale);
-  } else if constexpr (V == kInt8) {
-    const picotron::Paged<Int8KV> src{
+  SourceOf<V> src;
+  if constexpr (V == kInt8) {
+    src = Paged<Int8KV>{
         Int8KV{kq + kvh * D, vq + kvh * D, ks + kvh, vs + kvh, stride, hkv},
         map};
-    picotron::attend_rows_kv<D, false>(sm, nr, max_pos, a.q, src, a.o,
-                                       n_keys, a.scale);
   } else {
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
-    const picotron::MixedKV src{
-        Bf16KV{kb + kvh * D, vb + kvh * D, stride},
-        Int8KV{kq + kvh * D, vq + kvh * D, ks + kvh, vs + kvh, stride, hkv},
-        map, page_quant, tile_quant};
-    picotron::attend_rows_kv<D, false>(sm, nr, max_pos, a.q, src, a.o,
-                                       n_keys, a.scale);
+    const Bf16KV hot{kb + kvh * D, vb + kvh * D, stride};
+    if constexpr (V == kBf16) {
+      src = Paged<Bf16KV>{hot, map};
+    } else {
+      src = MixedKV{hot,
+                    Int8KV{kq + kvh * D, vq + kvh * D, ks + kvh, vs + kvh,
+                           stride, hkv},
+                    map, page_quant, sm.quant};
+    }
   }
+  picotron::attend_split<D, kR>(smem_raw, src, a.q, b, kvh, row0, a.S, a.H,
+                                a.Hkv, a.lengths[b], n_keys, split,
+                                a.tiles_per_split, a.scale, ws);
 }
 
-template <int D, int V>
-int launch(const PagedArgs& a, int B, const void* k, const void* v,
-           const int8_t* kq, const int8_t* vq, const float* ks,
-           const float* vs, const int* page_quant, cudaStream_t stream) {
-  const int smem = static_cast<int>(picotron::smem_bytes<D>());
+template <int D, int kR, int V>
+int launch(const PagedArgs& a, int B, void* o, void* ws, const void* k,
+           const void* v, const int8_t* kq, const int8_t* vq,
+           const float* ks, const float* vs, const int* page_quant,
+           cudaStream_t stream) {
+  const int smem =
+      picotron::smem_bytes<D, kR, SourceOf<V>>(a.tiles_per_split);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_decode_paged_kernel<D, V>,
+      flash_decode_paged_kernel<D, kR, V>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rows = a.S * (a.H / a.Hkv);
-  const dim3 grid((rows + kRows - 1) / kRows, a.Hkv, B);
-  flash_decode_paged_kernel<D, V><<<grid, kThreads, smem, stream>>>(
-      a, k, v, kq, vq, ks, vs, page_quant);
-  return static_cast<int>(cudaGetLastError());
+  const int n_vec = B * a.S * a.H;
+  const int row_blocks = (a.S * (a.H / a.Hkv) + kR - 1) / kR;
+  const dim3 grid(row_blocks * a.n_splits, a.Hkv, B);
+  flash_decode_paged_kernel<D, kR, V>
+      <<<grid, picotron::block_threads(kR), smem, stream>>>(
+      a, picotron::partials_of(ws, a.n_splits, n_vec, D), k, v, kq, vq, ks,
+      vs, page_quant);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return picotron::launch_merge<D>(ws, a.n_splits, n_vec, o, stream);
 }
 
 // log2(page_len), or -1 unless page_len is a power of two >= kMinPageLen
@@ -149,28 +159,37 @@ template <int V>
 int dispatch(const void* q, const void* k, const void* v, const void* kq,
              const void* vq, const void* ks, const void* vs,
              const void* page_quant, const void* block_tables,
-             const void* lengths, void* o, int B, int S, int H, int Hkv,
-             int page_len, int max_pages, int D, float scale, void* stream) {
+             const void* lengths, void* o, void* ws, int B, int S, int H,
+             int Hkv, int page_len, int max_pages, int D, int n_splits,
+             float scale, void* stream) {
   const int shift = page_shift_of(page_len);
   if (shift < 0 || max_pages < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int per = picotron::tiles_per_split_of(max_pages << shift, n_splits);
+  if (per < 0) return static_cast<int>(cudaErrorInvalidValue);
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q),
                     static_cast<const int*>(block_tables),
                     static_cast<const int*>(lengths),
-                    static_cast<__nv_bfloat16*>(o),
-                    S, H, Hkv, max_pages, shift, scale};
+                    S, H, Hkv, max_pages, shift, n_splits, per, scale};
   const auto* kq8 = static_cast<const int8_t*>(kq);
   const auto* vq8 = static_cast<const int8_t*>(vq);
   const auto* ksf = static_cast<const float*>(ks);
   const auto* vsf = static_cast<const float*>(vs);
   const auto* pq = static_cast<const int*>(page_quant);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool small = S * (H / Hkv) <= kSmallRows;
   switch (D) {
     case 64:
-      return launch<64, V>(a, B, k, v, kq8, vq8, ksf, vsf, pq, st);
+      return small ? launch<64, kSmallRows, V>(a, B, o, ws, k, v, kq8, vq8,
+                                               ksf, vsf, pq, st)
+                   : launch<64, kChunkRows, V>(a, B, o, ws, k, v, kq8, vq8,
+                                               ksf, vsf, pq, st);
     case 128:
-      return launch<128, V>(a, B, k, v, kq8, vq8, ksf, vsf, pq, st);
+      return small ? launch<128, kSmallRows, V>(a, B, o, ws, k, v, kq8, vq8,
+                                                ksf, vsf, pq, st)
+                   : launch<128, kChunkRows, V>(a, B, o, ws, k, v, kq8, vq8,
+                                                ksf, vsf, pq, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -180,15 +199,17 @@ int dispatch(const void* q, const void* k, const void* v, const void* kq,
 
 // Every pointer is contiguous device memory. q, o: [B, S, H, D] bf16;
 // k, v: the bf16 pool [P, page_len, Hkv, D]; block_tables: [B, max_pages]
-// int32; lengths: [B] int32; D in {64, 128}; page_len a power of two >= 8.
+// int32; lengths: [B] int32; ws: n_splits * B * S * H * (D + 2) fp32
+// values; D in {64, 128}; page_len a power of two >= 8; n_splits from
+// decode_attention.split_plan over max_pages * page_len keys.
 extern "C" int picotron_flash_decode_paged(
     const void* q, const void* k, const void* v, const void* block_tables,
-    const void* lengths, void* o, int B, int S, int H, int Hkv, int page_len,
-    int max_pages, int D, float scale, void* stream) {
-  return dispatch<kBf16>(q, k, v, nullptr, nullptr, nullptr,
-                                  nullptr, nullptr, block_tables, lengths, o,
-                                  B, S, H, Hkv, page_len, max_pages, D, scale,
-                                  stream);
+    const void* lengths, void* o, void* ws, int B, int S, int H, int Hkv,
+    int page_len, int max_pages, int D, int n_splits, float scale,
+    void* stream) {
+  return dispatch<kBf16>(q, k, v, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, block_tables, lengths, o, ws, B, S, H, Hkv,
+                         page_len, max_pages, D, n_splits, scale, stream);
 }
 
 // As picotron_flash_decode_paged, with k, v the int8 pool
@@ -197,12 +218,11 @@ extern "C" int picotron_flash_decode_paged(
 extern "C" int picotron_flash_decode_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* block_tables, const void* lengths,
-    void* o, int B, int S, int H, int Hkv, int page_len, int max_pages,
-    int D, float scale, void* stream) {
-  return dispatch<kInt8>(q, nullptr, nullptr, k, v, k_scale,
-                                  v_scale, nullptr, block_tables, lengths, o,
-                                  B, S, H, Hkv, page_len, max_pages, D, scale,
-                                  stream);
+    void* o, void* ws, int B, int S, int H, int Hkv, int page_len,
+    int max_pages, int D, int n_splits, float scale, void* stream) {
+  return dispatch<kInt8>(q, nullptr, nullptr, k, v, k_scale, v_scale,
+                         nullptr, block_tables, lengths, o, ws, B, S, H, Hkv,
+                         page_len, max_pages, D, n_splits, scale, stream);
 }
 
 // As picotron_flash_decode_paged, with both pools: k, v bf16 and k_quant,
@@ -213,10 +233,10 @@ extern "C" int picotron_flash_decode_mixed(
     const void* q, const void* k, const void* v, const void* k_quant,
     const void* v_quant, const void* k_scale, const void* v_scale,
     const void* page_quant, const void* block_tables, const void* lengths,
-    void* o, int B, int S, int H, int Hkv, int page_len, int max_pages,
-    int D, float scale, void* stream) {
-  return dispatch<kMixed>(q, k, v, k_quant, v_quant, k_scale,
-                                   v_scale, page_quant, block_tables, lengths,
-                                   o, B, S, H, Hkv, page_len, max_pages, D,
-                                   scale, stream);
+    void* o, void* ws, int B, int S, int H, int Hkv, int page_len,
+    int max_pages, int D, int n_splits, float scale, void* stream) {
+  return dispatch<kMixed>(q, k, v, k_quant, v_quant, k_scale, v_scale,
+                          page_quant, block_tables, lengths, o, ws, B, S, H,
+                          Hkv, page_len, max_pages, D, n_splits, scale,
+                          stream);
 }

@@ -35,6 +35,15 @@ variants, each its own kernel and count:
 Their plain versions gather each slot's window through its table row
 (JAX's dense read, ``paged_kv.attend``) and run the contiguous plain
 arithmetic on it.
+
+Every variant splits its walk over the window across blocks
+(csrc/attention_tile.cuh): ``split_plan`` cuts the window into ranges of
+whole 128-key tiles from the shapes alone, each block writes fp32 partials
+(m, l, the unnormalised accumulator) for its range to a workspace the
+wrapper allocates, and a second kernel merges them in split order. One
+call of a wrapper makes both launches and counts once.
+``flash_decode_attention_split_plain`` models that arithmetic in plain
+PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -66,6 +75,51 @@ KERNEL_MIXED = build.Kernel(
     replaces="picotron_tpu/ops/pallas/decode_attention.py:162")
 
 HEAD_DIMS = (64, 128)  # head_dim values the kernel is compiled for
+TILE_KEYS = 128  # keys per tile of the walk (attention_tile.cuh kKeys)
+SMALL_ROWS = 16  # S * g at or under it: decode's row tile (kSmallRows)
+MAX_SPLIT_TILES = 8  # tiles a split may hold (kMaxSplitTiles)
+
+
+def split_plan(n_keys: int, rows: int) -> tuple:
+    """C's split plan for a window of ``n_keys`` keys (T, or max_pages x
+    page_len) and ``rows`` = S x g folded query rows per slot and kv head:
+    ``(n_splits, tiles_per_split)``, the window cut into ``n_splits``
+    ranges of ``tiles_per_split`` whole 128-key tiles (the last may hold
+    fewer). A function of the shapes alone: it never reads the lengths,
+    which would cost a host sync on the decode path, so a contiguous and a
+    paged call over the same window get the same plan. The head dim does
+    not enter it.
+
+    Decode (rows <= 16): one tile a split up to 32 splits, so that a
+    decode step fills the card (T = 2048: 16 splits, 8 slots x 32 kv
+    heads = 4,096 blocks). Chunks: at least two tiles a split, at most 8
+    splits: the row blocks already multiply the blocks, and a split's
+    second tile is copied while its first is computed."""
+    tiles = max(1, -(-n_keys // TILE_KEYS))
+    if rows <= SMALL_ROWS:
+        per = -(-tiles // 32)
+    else:
+        per = max(2, -(-tiles // 8))
+    per = min(per, MAX_SPLIT_TILES, tiles)
+    n_splits = -(-tiles // per)
+    return n_splits, -(-tiles // n_splits)
+
+
+def plan_for(q: torch.Tensor, k: torch.Tensor,
+             block_tables: torch.Tensor | None = None) -> tuple:
+    """``split_plan`` of a call: the window is ``k``'s T, or ``max_pages
+    x page_len`` of a pool ``k`` read through ``block_tables``."""
+    n_keys = (k.shape[1] if block_tables is None
+              else block_tables.shape[1] * k.shape[1])
+    return split_plan(n_keys, q.shape[1] * (q.shape[2] // k.shape[2]))
+
+
+def _workspace(q: torch.Tensor, n_splits: int) -> torch.Tensor:
+    """The split partials, fp32: acc [n_splits, B*S*H, D], then m and l
+    [n_splits, B*S*H]."""
+    B, S, H, D = q.shape
+    return torch.empty(n_splits * B * S * H * (D + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 def flash_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -91,6 +145,46 @@ def flash_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     l = l.permute(0, 3, 1, 2, 4)  # [B, S, kv, g, 1], like out
     out = torch.where(l > 0, out / torch.where(l > 0, l, 1.0), 0.0)
     return out.reshape(B, S, nh, D).to(q.dtype)
+
+
+def flash_decode_attention_split_plain(q, k, v, lengths,
+                                       scale) -> torch.Tensor:
+    """A plain model of the kernels' split walk (not a plain version the
+    wrapper runs): the window cut as ``split_plan`` cuts it, each range's
+    fp32 partials (running max m, sum l and the unnormalised P @ V) with
+    the causal mask, merged in split order as the merge kernel does:
+    rescaled by exp(m_i - m), o = acc / l, zeros where l == 0. Same
+    arguments and result as ``flash_decode_attention_plain``."""
+    B, S, nh, D = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    n_splits, per = split_plan(T, S * g)
+    qg = q.reshape(B, S, nkv, g, D).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    pos_q = (lengths.long()[:, None] - S
+             + torch.arange(S, device=q.device)[None, :])  # [B, S]
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= pos_q[:, :, None])[:, None, None]  # [B, 1, 1, S, T]
+    parts = []
+    for i in range(n_splits):
+        lo, hi = i * per * TILE_KEYS, min((i + 1) * per * TILE_KEYS, T)
+        mk = mask[..., lo:hi]
+        s = torch.where(mk, scores[..., lo:hi], float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mk, torch.exp(s - torch.where(torch.isfinite(m), m,
+                                                      0.0)), 0.0)
+        acc = torch.einsum("bkgst,btkd->bkgsd", p, v[:, lo:hi].float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    m = torch.stack([mi for mi, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for mi, li, ai in parts:  # in split order; empty partials add nothing
+        live = torch.isfinite(mi)
+        w = torch.where(live, torch.exp(mi - torch.where(live, m, 0.0)), 0.0)
+        l = l + li * w
+        acc = acc + ai * w
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, nh, D).to(q.dtype)
 
 
 def flash_decode_attention_int8_plain(q, k, v, lengths, scale, k_scale,
@@ -299,18 +393,21 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    n_splits, _ = plan_for(q, k)
+    ws = _workspace(q, n_splits)
+    dims = (B, S, H, k.shape[2], k.shape[1], D, n_splits, float(scale),
+            build.stream_of(q))
     if quantized:
         rc = build.library().picotron_flash_decode_int8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, S, H,
-            k.shape[2], k.shape[1], D, float(scale), build.stream_of(q))
+            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), *dims)
         build.check(rc, KERNEL_INT8)
         KERNEL_INT8.launches += 1
     else:
         rc = build.library().picotron_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, S, H, k.shape[2], k.shape[1], D, float(scale),
-            build.stream_of(q))
+            out.data_ptr(), ws.data_ptr(), *dims)
         build.check(rc, KERNEL)
         KERNEL.launches += 1
     return out
@@ -335,9 +432,12 @@ def _launch_paged(q, k, v, lengths, scale, k_scale, v_scale, block_tables,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    n_splits, _ = plan_for(q, k, block_tables)
+    ws = _workspace(q, n_splits)
     dims = (B, S, H, k.shape[2], k.shape[1], block_tables.shape[1], D,
-            float(scale), build.stream_of(q))
-    tail = (block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr())
+            n_splits, float(scale), build.stream_of(q))
+    tail = (block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            ws.data_ptr())
     lib = build.library()
     if mixed:
         rc = lib.picotron_flash_decode_mixed(

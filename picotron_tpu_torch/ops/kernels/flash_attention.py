@@ -1,8 +1,7 @@
 """Kernels B, E and F: the causal flash-attention forward
 (csrc/flash_attention.cu) and its backward, dQ (csrc/flash_attention_bwd.cu)
 and dK/dV (csrc/flash_attention_bwd_dkv.cu), with their plain versions.
-B and F run their products on the bf16 tensor cores (wgmma), E on the fp32
-pipes.
+All three run their products on the bf16 tensor cores (wgmma).
 
 ``flash_attention`` is the wrapper the model's full-sequence path calls.
 Where autograd needs a gradient it goes through ``FlashAttentionFunction``:

@@ -1,12 +1,13 @@
-"""Kernels B and F's plain versions at the kernels' real head dims, and the
-kernels' C interface.
+"""Kernels B, E and F's plain versions at the kernels' real head dims, and
+the kernels' C interface.
 
 On the card, ``chip_smoke.py`` holds the tensor-core kernels B
-(``csrc/flash_attention.cu``) and F (``csrc/flash_attention_bwd_dkv.cu``)
-against ``flash_attention_plain`` and ``flash_attention_bwd_dkv_plain``.
+(``csrc/flash_attention.cu``), E (``csrc/flash_attention_bwd.cu``) and F
+(``csrc/flash_attention_bwd_dkv.cu``) against ``flash_attention_plain``,
+``flash_attention_bwd_dq_plain`` and ``flash_attention_bwd_dkv_plain``.
 Here those plain versions are held to the Pallas kernels in interpret mode
-at head_dim 64 and 128, GQA g = 4 and ragged S, in bf16: the inputs the
-kernels take. The C interface test parses every exported
+at head_dim 64 and 128, GQA g = 4 (E also g = 1) and ragged S, in bf16:
+the inputs the kernels take. The C interface test parses every exported
 ``picotron_*`` prototype in ``csrc/*.cu`` and holds it to the ctypes
 argtypes in ``build.SIGNATURES``: a mismatch there is silent on the card.
 """
@@ -113,6 +114,45 @@ def test_flash_dkv_plain_matches_pallas_vjp(D, S):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), rtol=2e-2,
                                    atol=2e-2, err_msg=name)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("S", [80, 130])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dq_plain_matches_pallas_vjp(D, S, g):
+    """E's function against jax.vjp of the Pallas flash_attention in
+    interpret mode (K/V jnp.repeat-ed to every head), at MHA (g = 1) and
+    GQA (g = 4): dq against the VJP's dQ, delta against rowsum(dO * O) in
+    fp32 over the Pallas forward's own output, which E is given as o. lse
+    is the port's (B's plain version), as E gets it. bf16 in both, dS
+    rounded to bf16 before the dQ product in both; dq 2e-2, delta 1e-5
+    relative (one fp32 sum of the same bf16 products)."""
+    rng = np.random.default_rng(3 * D + S + g)
+    nkv = NH // g
+    arrays = [rng.standard_normal((1, S, h, D)).astype(np.float32)
+              for h in (NH, nkv, nkv, NH)]
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in arrays)
+    scale = D ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        jo, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(
+            a, jnp.repeat(b, g, axis=2), jnp.repeat(c, g, axis=2), scale,
+            causal=True, **_blocks(S)), jq, jk, jv)
+        want_dq, _, _ = vjp(jdo)
+    o = torch.from_numpy(np.asarray(jo, np.float32)).to(torch.bfloat16)
+    _, lse = kb.flash_attention_plain(tq, tk, tv, scale, return_lse=True)
+    dq, delta = kb.flash_attention_bwd_dq_plain(tq, tk, tv, o, lse, tdo,
+                                                scale)
+    assert dq.dtype == torch.bfloat16 and dq.shape == tq.shape
+    assert delta.dtype == torch.float32 and delta.shape == (1, NH, S)
+    np.testing.assert_allclose(dq.float().numpy(),
+                               np.asarray(want_dq, np.float32), rtol=2e-2,
+                               atol=2e-2)
+    want_delta = np.sum(np.asarray(jdo, np.float32) * np.asarray(
+        jo, np.float32), axis=-1).transpose(0, 2, 1)
+    np.testing.assert_allclose(delta.numpy(), want_delta, rtol=1e-5,
+                               atol=1e-5)
 
 
 _PROTO = re.compile(r'extern\s+"C"\s+int\s+(picotron_\w+)\s*\(([^)]*)\)')

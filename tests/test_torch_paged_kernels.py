@@ -10,6 +10,12 @@ Each plain version is held against
 slots share pages and end in NULL entries, with lengths from 0 to the
 window's edge. The CUDA kernels themselves run only on the card
 (``chip_smoke.py``).
+
+Every variant's kernel splits its walk over the window (``split_plan``)
+and merges the splits' partials in split order; the plain model of that
+arithmetic (``flash_decode_attention_split_plain``) is held here to the
+plain version at lengths that leave whole splits empty, and the plan to
+the shapes alone: the same for a contiguous and a paged window.
 """
 
 import jax.numpy as jnp
@@ -206,3 +212,58 @@ def test_paged_wrapper_validates_and_never_falls_back(monkeypatch):
         kc.flash_decode_attention(mq, meta((3, 12, 2, 64)),
                                   meta((3, 12, 2, 64)), mlen, 0.1,
                                   block_tables=mbt)
+
+
+# lengths that leave whole 128-key splits empty (0, 1), end at a tile's
+# edge (127, 128, 129) and fill the window
+SPLIT_T = 640
+
+
+@pytest.mark.parametrize("S, nh, nkv", [(1, 4, 4), (1, 8, 2), (512, 4, 4)])
+def test_split_model_matches_plain(S, nh, nkv):
+    """The split walk's arithmetic (ranges of whole tiles, per-split fp32
+    partials, the merge in split order) equals the plain version at decode
+    (S = 1, MHA and GQA) and at a 512-row chunk, at 1e-5 in fp32 (the two
+    sum in different orders), with rows that see no key exactly zero."""
+    rng = np.random.default_rng(S + nh + nkv)
+    lengths = [0, 1, 127, 128, 129, SPLIT_T]
+    B = len(lengths)
+    q = torch.from_numpy(_rand(rng, B, S, nh, D))
+    k = torch.from_numpy(_rand(rng, B, SPLIT_T, nkv, D))
+    v = torch.from_numpy(_rand(rng, B, SPLIT_T, nkv, D))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    n_splits, per = kc.plan_for(q, k)
+    assert n_splits > 1 and (n_splits - 1) * per * 128 < SPLIT_T
+    got = kc.flash_decode_attention_split_plain(q, k, v, lens, D ** -0.5)
+    want = kc.flash_decode_attention_plain(q, k, v, lens, D ** -0.5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    visible = (np.asarray(lengths)[:, None] - S + np.arange(S)[None]) >= 0
+    assert not got.numpy()[~visible].any()
+
+
+@pytest.mark.parametrize("page_len", [8, 16, 128])
+@pytest.mark.parametrize("max_pages", [1, 16, 64, 256])
+@pytest.mark.parametrize("S", [1, 16, 512])
+def test_split_plan_is_the_same_contiguous_and_paged(page_len, max_pages,
+                                                     S):
+    """A contiguous window of T keys and a paged window of max_pages x
+    page_len = T keys get one plan (what keeps each paged variant bit for
+    bit its contiguous twin), a function of shapes alone that covers the
+    window with at most 8 tiles a split: one tile a split at decode up to
+    32 splits, at least two for a chunk, at most 8 splits."""
+    T = max_pages * page_len
+    q = torch.empty(2, S, 8, 64, device="meta")
+    contiguous = kc.plan_for(q, torch.empty(2, T, 2, 64, device="meta"))
+    paged = kc.plan_for(q, torch.empty(5, page_len, 2, 64, device="meta"),
+                        torch.empty(2, max_pages, device="meta",
+                                    dtype=torch.int32))
+    assert contiguous == paged == kc.split_plan(T, S * 4)
+    n_splits, per = contiguous
+    tiles = -(-T // 128)
+    assert (n_splits - 1) * per < tiles <= n_splits * per
+    assert 1 <= per <= kc.MAX_SPLIT_TILES
+    if S * 4 <= kc.SMALL_ROWS:  # decode: one tile a split up to 32
+        assert (per == 1) == (tiles <= 32)
+    else:  # chunks: two tiles a split or more, at most 8 splits
+        assert per >= min(2, tiles)
+        assert n_splits <= 8 or tiles > 8 * kc.MAX_SPLIT_TILES
