@@ -7,7 +7,10 @@ Run from the root of a checkout. Phases, each of which must pass:
 1. the card's name and power limit (nvidia-smi), then the CUDA kernels
    built from this checkout's sources (build seconds printed, and each
    kernel's registers, static shared memory and spills as ptxas reports
-   them);
+   them), and kernel C's instructions (``cuobjdump -sass``): each of its
+   ten chunk instantiations (five variants, two head dims) must hold
+   HGMMA (tensor-core) instructions, its decode instantiations none, and
+   no separate merge kernel may be left;
 2. every kernel against its plain PyTorch version on the card, in bf16, at
    the main paths' shapes plus a ragged and a GQA shape (B and C at
    head_dim 64 and 128, B also at S = 200, which no 64-row tile divides;
@@ -15,13 +18,19 @@ Run from the root of a checkout. Phases, each of which must pass:
    shape at head_dim 64, and the GQA shape at 128; G at every projection
    shape of Llama-2-7B; C's int8 variant at its decode and chunk shapes).
    B (the forward), E (dQ) and F (dK/dV) run their products on the bf16
-   tensor cores (wgmma), the rest on the fp32 pipes. C's five variants
-   split their walk over the window across blocks and merge the splits in
-   a second launch; every C row names its split plan, and C is also held
-   at lengths that leave whole splits empty (0, 1, 129: those slots' rows
-   must come out exactly 0). One JSON line per shape
-   with the kernel's time, the plain version's, one library call's (a
-   yardstick only; the port never calls it) and the card's lower bound.
+   tensor cores (wgmma), and so do C's chunk rows; the rest run on the
+   fp32 pipes. C's five variants split their walk over the window across
+   blocks, and the last block of each row block merges the splits: one
+   launch a call, which each C row reads from a profiler trace (one device
+   kernel per call), with the same output bit for bit when called twice
+   and the merge's counters back at zero. Every C row names its split
+   plan, and C is also held at lengths that leave whole splits empty (0,
+   1, 129) and, at chunks (S = 512, GQA, and a ragged 400 rows of S x g),
+   at rows that see no key: those rows must come out exactly 0. One JSON
+   line per shape with the kernel's time, the plain version's, one
+   library call's (a yardstick only; the port never calls it) and the
+   card's lower bound; C's rows, A's and H's also with the device time of
+   the kernel and of the library call, from a profiler trace.
    The backward kernels' library yardstick is F.rms_norm and
    F.scaled_dot_product_attention under autograd, timed as forward +
    backward less forward; G's is aten's int8-weight matmul (or cuBLAS on a
@@ -52,8 +61,8 @@ Run from the root of a checkout. Phases, each of which must pass:
    ``picotron_tpu_torch.tools.generate`` command line on the same model,
    which must serve on the card without being told to;
 4. the serving requests once more under torch.profiler: where the device
-   time went, the device's busy share of the wall time, and C's split and
-   merge kernels by name;
+   time went, the device's busy share of the wall time, and C's kernels by
+   name (no separate merge kernel may appear in any profile);
 5. the paged serving path: the SmolLM-1.7B model of phase 3 (8 slots,
    window 2048, 16-row pages, the pool auto-sized, the radix prefix cache
    on) serving a shared-prefix traffic of 8 requests (four under one
@@ -242,27 +251,87 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters: int = 10) -> float | None:
-    """The device time of one call of ``fn``: every kernel it launches,
-    summed from a torch.profiler trace of ``iters`` calls (no host time, so
-    a call whose wrapper costs more on the host than its kernels take on
-    the device is measured by its kernels); None if three traces in a row
-    hold no device event."""
+def _device_trace(torch, fn, iters: int = 10, per_call=None) -> tuple:
+    """The device side of one call of ``fn``, from a torch.profiler trace
+    of ``iters`` calls (no host time, so a call whose wrapper costs more on
+    the host than its kernels take on the device is measured by its
+    kernels): (milliseconds, device events per call, their names). A trace
+    now and then comes back without events, or short of one: a trace with
+    none, or (given ``per_call``) with another count than ``per_call`` a
+    call, is taken again, up to five times; the last one is returned
+    ((None, 0, []) if none held an event)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without events
+    out = (None, 0, [])
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ns = sum(e.duration_ns()
-                 for e in prof.profiler.kineto_results.events()
-                 if str(e.device_type()).endswith("CUDA"))
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if str(e.device_type()).endswith("CUDA")]
+        ns = sum(e.duration_ns() for e in events)
         if ns > 0:
-            return ns / 1e6 / iters
-    return None
+            out = (ns / 1e6 / iters, len(events) / iters,
+                   sorted({e.name()[:90] for e in events}))
+            if per_call is None or len(events) == per_call * iters:
+                return out
+    return out
+
+
+def _device_ms(torch, fn, iters: int = 10) -> float | None:
+    """The device time of one call of ``fn``: every kernel it launches,
+    summed from a profiler trace (``_device_trace``)."""
+    return _device_trace(torch, fn, iters)[0]
+
+
+def _sass_check(lib_path: str) -> list:
+    """Kernel C in the built library, from ``cuobjdump -sass``: each
+    instantiation's count of tensor-core (HGMMA) and fp32 FMA (FFMA)
+    instructions. The chunk walks (row tile 64) must run their products
+    on the tensor cores, the decode walks (row tile 16) on the fp32 pipes,
+    and no separate merge kernel may be left. Returns one record per
+    instantiation."""
+    from picotron_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "flash_decode" in m.group(1) else None
+            if name:
+                counts[name] = {"HGMMA": 0, "FFMA": 0}
+        elif name:
+            for op in ("HGMMA", "FFMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    out = []
+    for mangled, n in sorted(counts.items()):
+        if "merge" in mangled:
+            raise AssertionError(f"a separate merge kernel is left: "
+                                 f"{mangled}")
+        k = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+        base = (mangled[k.end():k.end() + int(k.group(1))] if k
+                else mangled)
+        args = [int(a) for a in re.findall(r"Li(\d+)E", mangled)]
+        rows = args[1] if len(args) > 1 else None
+        rec = {"kernel": f"{base}<{','.join(map(str, args))}>",
+               "row_tile": rows, **n}
+        if rows == 64 and n["HGMMA"] == 0:
+            raise AssertionError(f"{rec['kernel']}: no HGMMA in a chunk "
+                                 "walk")
+        if rows == 16 and n["HGMMA"] != 0:
+            raise AssertionError(f"{rec['kernel']}: HGMMA in a decode walk")
+        out.append(rec)
+    if sum(r["row_tile"] == 64 for r in out) != 10:
+        raise AssertionError(f"expected 10 chunk instantiations of C (5 "
+                             f"variants x 2 head dims): {out}")
+    return out
 
 
 def _ptxas_summary(log: str) -> list:
@@ -320,17 +389,44 @@ def _check(name, got, want, mask=None, atol=ATOL, rtol=RTOL) -> float:
     return float(err.max())
 
 
-# what C's rows add to their records: the split plan, and the kernels' and
-# the library call's device time (the wrapper times include the host's
-# cost of a call, which at decode is about that of the kernels)
+# what C's rows, A's and H's add to their records: C's split plan, and the
+# kernels' and the library call's device time (the wrapper times include
+# the host's cost of a call, which at decode is about that of the kernels)
 DEVICE_KEYS = ("split_plan", "device_ms", "library_device_ms")
 
 
 def _c_extra(torch, kc, run, lib, q, k, block_tables=None) -> dict:
-    """A C row's split plan and device times."""
+    """A C row's split plan and device times; its call must be one kernel
+    launch, the same bit for bit when made twice on the same inputs, and
+    leave the merge's counters at zero."""
+    a, b = run(), run()
+    if not torch.equal(a, b):
+        raise AssertionError("two C calls on the same inputs differ")
+    iters = 10
+    ms, per_call, names = _device_trace(torch, run, iters, per_call=1)
+    # every event one C kernel, none beyond one a call; a trace may still
+    # come back one event short (9 of 10 on an H100, five traces running),
+    # so the kernel's time is its events' mean
+    if len(names) != 1 or "flash_decode" not in names[0] \
+            or not (iters - 1) / iters <= per_call <= 1:
+        raise AssertionError(f"a C call made {per_call} device launches, "
+                             f"not 1: {names}")
+    ms /= per_call
+    _counters_zero(torch, kc)
+    lib_ms = _device_ms(torch, lib)
     return {"split_plan": _plan(kc, q, k, block_tables),
-            "device_ms": _device_ms(torch, run),
-            "library_device_ms": _device_ms(torch, lib)}
+            "device_ms": ms, "library_device_ms": lib_ms,
+            "device_kernels": names, "device_events_per_call": per_call,
+            "device_over_library": ms / lib_ms if ms and lib_ms else None}
+
+
+def _counters_zero(torch, kc) -> None:
+    """C's merge counters are all zero between launches."""
+    torch.cuda.synchronize()
+    for dev, buf in kc.COUNTERS.items():
+        if bool(buf.any()):
+            raise AssertionError(f"C's merge counters on {dev} are not all "
+                                 f"zero: {int((buf != 0).sum())} set")
 
 
 def _plan(kc, q, k, block_tables=None) -> dict:
@@ -395,12 +491,17 @@ def _kernel_checks(torch, F) -> dict:
         x, w = randn(rows, H), (1.0 + 0.1 * randn(H).float()).to(bf)
         err = _check(f"rmsnorm rows={rows}", ka.rms_norm(x, w, eps),
                      ka.rms_norm_plain(x, w, eps))
+        lib = ((lambda: F.rms_norm(x, (H,), w, eps))
+               if hasattr(F, "rms_norm") else None)
         record(ka.KERNEL, {"rows": rows, "H": H}, err,
                _time_ms(lambda: ka.rms_norm(x, w, eps)),
                _time_ms(lambda: ka.rms_norm_plain(x, w, eps)),
-               (_time_ms(lambda: F.rms_norm(x, (H,), w, eps))
-                if hasattr(F, "rms_norm") else None),
-               _bound((2 * rows * H + H) * 2, 0.0), main=rows == 8)
+               _time_ms(lib) if lib else None,
+               _bound((2 * rows * H + H) * 2, 0.0), main=rows == 8,
+               extra={"device_ms": _device_ms(
+                          torch, lambda: ka.rms_norm(x, w, eps)),
+                      "library_device_ms": (_device_ms(torch, lib)
+                                            if lib else None)})
 
     # B: causal prefill attention, [1, S, 32, D]; one GQA shape (g = 4),
     # one S that no 64-row tile divides (200); D = 64 (SmolLM) and D = 128
@@ -428,16 +529,19 @@ def _kernel_checks(torch, F) -> dict:
                variant="d128" if D == 128 else None)
 
     # C: flash decode against an 8-slot, 2048-row cache (decode S = 1 and a
-    # 16-wide block), one slot empty; the 512-wide chunked-prefill shape;
-    # one GQA shape (g = 4); three slots whose lengths leave whole splits
-    # empty (0, 1, 129); D = 64 and D = 128
+    # 16-wide block), one slot empty; the 512-wide chunked-prefill shape
+    # (rows on the tensor cores), also GQA (g = 4) and at a ragged S x g
+    # (400 rows: no multiple of the 64-row tile) whose first slot's leading
+    # rows see no key; one GQA decode shape (g = 4); three slots whose
+    # lengths leave whole splits empty (0, 1, 129); D = 64 and D = 128
     T = 2048
     lens8 = [0, 1, 17, 128, 129, 700, 1500, 2048]
     for D, B, S, nh, nkv, lens in (
             (D, *shape) for D in (64, 128)
             for shape in ((8, 1, 32, 32, lens8), (8, 16, 32, 32, lens8),
-                          (1, 512, 32, 32, [1536]), (8, 1, 32, 8, lens8),
-                          (3, 1, 32, 32, [0, 1, 129]))):
+                          (1, 512, 32, 32, [1536]), (1, 512, 32, 8, [1536]),
+                          (2, 100, 32, 8, [60, 1100]),
+                          (8, 1, 32, 8, lens8), (3, 1, 32, 32, [0, 1, 129]))):
         q = randn(B, S, nh, D)
         k, v = randn(B, T, nkv, D), randn(B, T, nkv, D)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -464,13 +568,14 @@ def _kernel_checks(torch, F) -> dict:
             q, k, v, lengths, scale)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=amask, scale=scale)
+        chunk = (B, S, nkv, D) == (1, 512, 32, 64)
         record(kc.KERNEL, {"B": B, "S": S, "H": nh, "Hkv": nkv, "T": T,
                            "D": D, "lengths": lens}, err, _time_ms(run),
                _time_ms(lambda: kc.flash_decode_attention_plain(
                    q, k, v, lengths, scale)),
                _time_ms(lib), _bound(nbytes, 4 * D * nh * visible),
-               main=(B, S, nkv) == (8, 1, 32),
-               variant="d128" if D == 128 else None,
+               main=(B, S, nkv) == (8, 1, 32) or chunk,
+               variant=("chunk" if chunk else "d128" if D == 128 else None),
                extra=_c_extra(torch, kc, run, lib, q, k))
     _int8_kernel_checks(torch, F, randn, record)
     _paged_kernel_checks(torch, F, randn, record)
@@ -525,13 +630,19 @@ def _int8_kernel_checks(torch, F, randn, record) -> None:
         del x, w, q, s
     torch.cuda.empty_cache()
 
-    T, D = 4096, 128
+    # C-int8 at Llama-2-7B's head_dim 128 (and the chunk at 64 too): the
+    # decode and chunk shapes, a GQA chunk, a ragged S x g (400 rows) with
+    # rows that see no key, a GQA decode shape, and empty splits
+    T = 4096
     lens8 = [0, 1, 130, 257, 700, 964, 2000, 4096]
-    for B, S, nh, nkv, lens in ((8, 1, 32, 32, lens8),
-                                (1, 512, 32, 32, [1024]),
-                                (1, 512, 32, 32, [900]),
-                                (8, 1, 32, 8, lens8),
-                                (3, 1, 32, 32, [0, 1, 129])):
+    for B, S, nh, nkv, D, lens in ((8, 1, 32, 32, 128, lens8),
+                                   (1, 512, 32, 32, 128, [1024]),
+                                   (1, 512, 32, 32, 128, [900]),
+                                   (1, 512, 32, 32, 64, [1024]),
+                                   (1, 512, 32, 8, 128, [1024]),
+                                   (2, 100, 32, 8, 128, [60, 1100]),
+                                   (8, 1, 32, 8, 128, lens8),
+                                   (3, 1, 32, 32, 128, [0, 1, 129])):
         q = randn(B, S, nh, D)
         kq, ks = quantize_kv(randn(B, T, nkv, D))
         vq, vs = quantize_kv(randn(B, T, nkv, D))
@@ -560,12 +671,14 @@ def _int8_kernel_checks(torch, F, randn, record) -> None:
             q, kq, vq, lengths, scale, ks, vs)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=amask, scale=scale)
+        chunk = (B, S, nkv, D, lens) == (1, 512, 32, 128, [1024])
         record(kc.KERNEL_INT8, {"B": B, "S": S, "H": nh, "Hkv": nkv, "T": T,
                                 "D": D, "lengths": lens}, err, _time_ms(run),
                _time_ms(lambda: kc.flash_decode_attention_int8_plain(
                    q, kq, vq, lengths, scale, ks, vs)),
                _time_ms(lib), _bound(nbytes, 4 * D * nh * visible),
-               main=(B, S, nkv) == (8, 1, 32),
+               main=(B, S, nkv) == (8, 1, 32) or chunk,
+               variant="chunk" if chunk else None,
                extra=_c_extra(torch, kc, run, lib, q, kq))
         del q, kq, vq, ks, vs, kt, vt, qt, got
         torch.cuda.empty_cache()
@@ -620,11 +733,18 @@ def _paged_kernel_checks(torch, F, randn, record) -> None:
     rng = np.random.default_rng(SEED)
     T = 2048
     lens8 = [0, 1, 17, 128, 129, 700, 1500, 2048]
-    # (B, S, H, Hkv, D, page_len, lengths, main, variant)
+    # (B, S, H, Hkv, D, page_len, lengths, main, variant): decode at D 64
+    # and 128; the chunk (S = 512 over 300 cached tokens; rows on the
+    # tensor cores) at D 64 and 128, GQA, and at a ragged S x g (400 rows)
+    # whose first slot's leading rows see no key; GQA decode; page lengths
+    # 8 and 128
     for B, S, nh, nkv, D, pl, lens, main, variant in (
             (8, 1, 32, 32, 64, PAGE_LEN, lens8, True, None),
             (8, 1, 32, 32, 128, PAGE_LEN, lens8, True, "d128"),
-            (1, 512, 32, 32, 64, PAGE_LEN, [300 + 512], False, None),
+            (1, 512, 32, 32, 64, PAGE_LEN, [300 + 512], True, "chunk"),
+            (1, 512, 32, 32, 128, PAGE_LEN, [300 + 512], False, None),
+            (1, 512, 32, 8, 64, PAGE_LEN, [300 + 512], False, None),
+            (2, 100, 32, 8, 64, PAGE_LEN, [60, 1100], False, None),
             (8, 1, 32, 8, 64, PAGE_LEN, lens8, False, None),
             (8, 1, 32, 32, 64, 8, lens8, False, None),
             (8, 1, 32, 32, 64, 128, lens8, False, None)):
@@ -732,6 +852,7 @@ def _paged_kernel_checks(torch, F, randn, record) -> None:
             got, want = run(), plain()
             err = _check(f"{kern.name} {name}", got, want, mask=live,
                          atol=PAGED_ATOL, rtol=PAGED_RTOL)
+            _empty_rows_zero(f"{kern.name} {name}", got, lens, S)
             rel = _slot_rel_l2(f"{kern.name} {name}", got, want, lens)
             record(kern, shape, err, _time_ms(run), _time_ms(plain),
                    _time_ms(lib),
@@ -810,7 +931,11 @@ def _lora_kernel_checks(torch, randn, record) -> None:
                library="torch.bmm twice over a[ids], b[ids] gathered "
                        "outside the timing",
                extra={"null_rows_max_abs": null_max,
-                      "tolerance": {"atol": LORA_ATOL, "rtol": LORA_RTOL}})
+                      "tolerance": {"atol": LORA_ATOL, "rtol": LORA_RTOL},
+                      "device_ms": _device_ms(
+                          torch, lambda: kh.segmented_lora(x, a, b, ids)),
+                      "library_device_ms": _device_ms(
+                          torch, lambda: torch.bmm(torch.bmm(xf, ag), bg))})
         del a, b, x, xf, ag, bg, got, want
     torch.cuda.empty_cache()
 
@@ -985,11 +1110,15 @@ def _profile(torch, run, path: str) -> dict:
         "device_busy_share": busy_ms / (wall * 1e3),
         "top": [{"name": name[:90], "calls": calls[name],
                  "device_ms": dev_ms[name]} for name in top],
-        # kernel C's split walks and their merge, whatever their rank
+        # kernel C's launches (each a split walk with its merge folded
+        # in), whatever their rank
         "decode_attention": [{"name": name[:90], "calls": calls[name],
                               "device_ms": dev_ms[name]}
                              for name in sorted(dev_ms)
                              if "flash_decode" in name]}}), flush=True)
+    merge = [name for name in dev_ms if "flash_decode_merge" in name]
+    if merge:
+        raise AssertionError(f"{path}: a separate merge kernel ran: {merge}")
     return dev_ms
 
 
@@ -1750,10 +1879,14 @@ def main() -> int:
     with open(log) as f:
         for line in _ptxas_summary(f.read()):
             print("  ptxas: " + line, flush=True)
+    print(json.dumps({"sass_flash_decode": _sass_check(build.build())}),
+          flush=True)
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     records = _kernel_checks(torch, F)
+    from picotron_tpu_torch.ops.kernels import decode_attention as kc
+    _counters_zero(torch, kc)
     torch.cuda.empty_cache()
     print(f"kernel checks passed in {time.perf_counter() - t0:.1f}s",
           flush=True)

@@ -4,30 +4,44 @@ The same JSON files the JAX package reads (``configs/*/config.json``) load
 here, with the JAX package's field names, defaults and validation
 messages for what the port reads: ``distributed``, ``model``,
 ``training``, ``dataset``, ``checkpoint``, ``logging``, ``resilience``,
-``obs`` and ``inference``. Every unknown key is ignored, as
-``picotron_tpu.config.Config.from_dict`` ignores unknown keys.
+``obs`` and ``inference``. A key that is no field of the JAX package's
+``Config`` either is ignored, as ``picotron_tpu.config.Config.from_dict``
+ignores unknown keys.
 
-``distributed.use_cpu`` asks the JAX package for a CPU mesh; the port
-ignores it. The port's entry points run on the CUDA card unless their
-caller passes ``device="cpu"``.
+Every field of the JAX package's ``Config`` is one of three things here,
+and ``tests/test_torch_config.py`` holds the port to it:
 
-Options that select a path this port does not have yet are refused, so a
-config never runs silently without the behaviour it asks for:
-
-- inference options (disaggregation roles, speculation, overlap, mixed
-  dispatch, on-device sampling, dp sharding) and the serving chaos hooks
+- declared by a section below and read;
+- refused at load when set to a value the port does not behave as
+  (``REFUSED_AT_LOAD``): disaggregation roles, speculation, overlap, mixed
+  dispatch, on-device sampling, dp sharding, the serving chaos hooks
   (``resilience.chaos_dispatch_*``, ``chaos_latency_round``,
-  ``chaos_poison_logits_round``) when set to anything but their default,
-  at load;
-- tenants or a tenant manifest (``inference.tenancy``), by the generate
-  CLI: only the JAX package's ``tools/serve.py`` reads them, and the port
-  has no serve.py yet;
-- for training, ``Config.check_trainable`` (called by the trainer): any
-  parallelism (dp, tp, pp or cp above 1, zero1, fsdp), ``remat``
-  ``"save_attn"`` and ``"offload"``, HF datasets, checkpoint saving,
-  loading and HF bootstrap, ``steps_per_call`` above 1, and the
-  resilience, observability, wandb and profiling features of the JAX
-  trainer. A serving run of a multi-device config still loads.
+  ``chaos_poison_logits_round``) and ``inference.key_schedule: "slot"``
+  (the port draws sampled tokens from one generator in batch order, a
+  per-round schedule);
+- inert (``INERT_FIELDS``, each with its reason): the field changes
+  nothing while the port runs as it does, for example
+  ``distributed.use_cpu`` (the port runs on the card unless its caller
+  passes ``device="cpu"``), ``pp_engine`` (pp = 1) or ``dataset.split``
+  (the synthetic dataset).
+
+Two serving fields are declared and refused where serving starts
+(``Config.check_servable``, called by ``InferenceEngine``), not at load:
+dispatch retries (``resilience.dispatch_attempts`` above 1: the port makes
+one attempt) and ``inference.attend_fallback: true`` (a kernel failure in
+the port raises). A training run reads neither, and the JAX package's own
+``to_dict`` writes both at its defaults (2 and true), so a dump of a JAX
+config loads here for training.
+
+Besides, tenants or a tenant manifest (``inference.tenancy``) are refused
+by the generate CLI (only the JAX package's ``tools/serve.py`` reads them,
+and the port has no serve.py yet), and ``Config.check_trainable`` (called
+by the trainer) refuses what the port's trainer lacks: any parallelism
+(dp, tp, pp or cp above 1, zero1, fsdp), ``remat`` ``"save_attn"`` and
+``"offload"``, HF datasets, checkpoint saving, loading and HF bootstrap,
+``steps_per_call`` above 1, and the resilience, observability, wandb and
+profiling features of the JAX trainer. A serving run of a multi-device
+config still loads.
 """
 
 from __future__ import annotations
@@ -141,15 +155,23 @@ class ResilienceConfig:
     """The one resilience feature the port has: the non-finite gate (a
     step with a non-finite loss or gradient norm changes neither the
     parameters nor the optimizer state). The other fields are read only
-    so that ``check_trainable`` can refuse a config that turns them on."""
+    so that ``check_trainable`` (training) or ``check_servable`` (the
+    dispatch attempts) can refuse a config that turns them on."""
 
     nonfinite_guard: bool = True
+    # serving: attempts per batcher dispatch. The port makes one and raises
+    # on a failure; check_servable refuses more (the JAX batcher retries,
+    # 2 attempts by default)
+    dispatch_attempts: int = 1
     anomaly_policy: str = "skip"
     heartbeat_path: str = ""
     chaos_raise_step: int = 0
     chaos_nan_step: int = 0
     chaos_sigterm_step: int = 0
     chaos_truncate_step: int = 0
+    chaos_preempt_rank_at_step: str = ""
+    chaos_kill_rank_at_step: str = ""
+    chaos_stall_rank_at_step: str = ""
 
 
 @dataclass
@@ -225,6 +247,10 @@ class InferenceConfig:
     kv_page_policy: str = "uniform"
     # Multi-tenant serving (TenancyConfig).
     tenancy: TenancyConfig = field(default_factory=TenancyConfig)
+    # The JAX engine's dense rebuild after a failed flash dispatch. The
+    # port raises on a kernel failure; check_servable refuses True (the
+    # JAX default).
+    attend_fallback: bool = False
 
     def __post_init__(self):
         # from_dict hands the nested section through as a dict (unknown
@@ -235,24 +261,129 @@ class InferenceConfig:
                 **{k: v for k, v in self.tenancy.items() if k in known})
 
 
-# Inference options of the JAX package that this port does not implement
-# yet, with the only value it accepts.
-_UNPORTED_INFERENCE = {
-    "role": "both",
-    "spec_len": 0,
-    "dp_size": 1,
-    "overlap": False,
-    "mixed_dispatch": False,
-    "sample_on_device": False,
+# (section, field) -> the values the port behaves as, for JAX fields the
+# port does not declare: any other value is refused at load. Inference
+# options of paths the port does not have yet; the JAX package's serving
+# chaos hooks (resilience.chaos.ServingChaos) at their "off" values; and
+# the per-round key schedule, which is what "auto" resolves to while
+# overlap and mixed dispatch are refused (the port draws every sampled
+# token of a round from one torch.Generator in batch order).
+REFUSED_AT_LOAD = {
+    ("inference", "role"): ("both",),
+    ("inference", "spec_len"): (0,),
+    ("inference", "dp_size"): (1,),
+    ("inference", "overlap"): (False,),
+    ("inference", "mixed_dispatch"): (False,),
+    ("inference", "sample_on_device"): (False,),
+    ("inference", "key_schedule"): ("auto", "round"),
+    ("resilience", "chaos_dispatch_raise_round"): (0,),
+    ("resilience", "chaos_dispatch_fail_slot"): (-1,),
+    ("resilience", "chaos_latency_round"): (0,),
+    ("resilience", "chaos_poison_logits_round"): (0,),
 }
 
-# The JAX package's serving chaos hooks (resilience.chaos.ServingChaos),
-# which the port's engine does not have yet, with their "off" values.
-_UNPORTED_SERVING_CHAOS = {
-    "chaos_dispatch_raise_round": 0,
-    "chaos_dispatch_fail_slot": -1,
-    "chaos_latency_round": 0,
-    "chaos_poison_logits_round": 0,
+# (section, field) -> why the port may leave it unread: JAX fields that
+# change nothing while the port runs as it does (what keeps them inert is
+# refused at load or by check_trainable).
+_UNTIL_PP = "inert while pp_size = 1 (check_trainable)"
+_UNTIL_CP = "inert while cp_size = 1 (check_trainable)"
+_SYNTHETIC = "inert while the dataset is synthetic (check_trainable)"
+_NO_CKPT_IO = ("checkpoint I/O; inert while the trainer neither saves nor "
+               "loads (check_trainable)")
+_ONE_HOST = ("multi-host consensus; inert in the port's one process "
+             "(check_trainable)")
+_NO_SPEC = "inert while inference.spec_len is 0 (refused otherwise)"
+INERT_FIELDS = {
+    ("distributed", "pp_engine"): _UNTIL_PP,
+    ("distributed", "pp_interleave"): _UNTIL_PP,
+    ("distributed", "stage_gating"): _UNTIL_PP,
+    ("distributed", "use_cpu"): "the port runs on the card unless its "
+                                "caller passes device='cpu'",
+    ("distributed", "cp_zigzag"): _UNTIL_CP,
+    ("distributed", "cp_impl"): _UNTIL_CP,
+    ("distributed", "tp_sequence_parallel"): "inert while tp_size = 1 "
+                                             "(check_trainable)",
+    ("distributed", "check_vma"): "a check of jax.shard_map's types, which "
+                                  "eager PyTorch has no counterpart of",
+    ("model", "flash_block_q"): "a Pallas block size; the port's kernels "
+                                "fix their own tiles",
+    ("model", "flash_block_k"): "a Pallas block size; the port's kernels "
+                                "fix their own tiles",
+    ("model", "flash_layout"): "the Pallas kernel's head layout; the "
+                               "port's kernels take [B, S, H, D]",
+    ("model", "gather_logits"): "inert while tp_size = 1: the logits are "
+                                "whole on one device",
+    ("dataset", "split"): _SYNTHETIC,
+    ("dataset", "text_column"): _SYNTHETIC,
+    ("dataset", "num_workers"): _SYNTHETIC,
+    ("dataset", "num_proc"): _SYNTHETIC,
+    ("dataset", "subset_name"): _SYNTHETIC,
+    ("dataset", "max_in_memory_tokens"): _SYNTHETIC,
+    ("checkpoint", "save_dir"): "inert while save_frequency is 0 "
+                                "(check_trainable)",
+    ("checkpoint", "hf_bootstrap_reinit"): "inert while hf_bootstrap_path "
+                                           "is empty (check_trainable)",
+    ("logging", "run_name"): "names the wandb run; inert while use_wandb "
+                             "is off (check_trainable)",
+    ("logging", "profile_stop"): "inert while profile_start is 0 "
+                                 "(check_trainable)",
+    ("logging", "profile_dir"): "inert while profile_start is 0 "
+                                "(check_trainable)",
+    ("resilience", "handle_signals"): "the JAX trainer saves on a signal; "
+                                      "with saving refused "
+                                      "(check_trainable) there is nothing "
+                                      "to save",
+    ("resilience", "save_on_exit"): "inert while save_frequency is 0 "
+                                    "(check_trainable)",
+    ("resilience", "auto_resume"): "inert while the trainer saves no "
+                                   "checkpoint to resume (check_trainable)",
+    ("resilience", "anomaly_ema_beta"): "tunes the loss-anomaly detector, "
+                                        "which changes no step under "
+                                        "anomaly_policy 'skip' "
+                                        "(check_trainable)",
+    ("resilience", "anomaly_zscore"): "tunes the loss-anomaly detector, "
+                                      "which changes no step under "
+                                      "anomaly_policy 'skip' "
+                                      "(check_trainable)",
+    ("resilience", "anomaly_warmup_steps"): "tunes the loss-anomaly "
+                                            "detector, which changes no "
+                                            "step under anomaly_policy "
+                                            "'skip' (check_trainable)",
+    ("resilience", "rollback_after"): "inert while anomaly_policy is "
+                                      "'skip' (check_trainable)",
+    ("resilience", "max_rollbacks"): "inert while anomaly_policy is 'skip' "
+                                     "(check_trainable)",
+    ("resilience", "io_attempts"): _NO_CKPT_IO,
+    ("resilience", "io_backoff"): _NO_CKPT_IO,
+    ("resilience", "io_jitter"): _NO_CKPT_IO,
+    ("resilience", "ckpt_mirror_dir"): _NO_CKPT_IO,
+    ("resilience", "emergency_save_timeout_s"): _NO_CKPT_IO,
+    ("resilience", "dispatch_backoff"): "inert while dispatch_attempts is "
+                                        "1 (check_servable)",
+    ("resilience", "consensus_interval"): _ONE_HOST,
+    ("resilience", "peer_timeout_s"): _ONE_HOST,
+    ("resilience", "lease_interval_s"): _ONE_HOST,
+    ("resilience", "cluster_dir"): _ONE_HOST,
+    ("resilience", "chaos_latency_s"): "inert while chaos_latency_round is "
+                                       "0 (refused otherwise)",
+    ("resilience", "chaos_stall_rank_s"): "inert while "
+                                          "chaos_stall_rank_at_step is "
+                                          "empty (check_trainable)",
+    ("inference", "spec_ngram"): _NO_SPEC,
+    ("inference", "drafter"): _NO_SPEC,
+    ("inference", "spec_history_window"): _NO_SPEC,
+    ("inference", "spec_controller"): _NO_SPEC,
+    ("obs", "enabled"): "switches the JAX package's counters and spans "
+                        "(obs/*), which the port has none of yet",
+    ("obs", "span_ring"): "sizes the JAX package's span ring, which the "
+                          "port has none of yet",
+    ("obs", "sample_window"): "sizes the JAX package's histograms, which "
+                              "the port has none of yet",
+    ("obs", "profile_dir"): "on-demand profiler captures of the JAX CLIs "
+                            "and serve.py; the port has neither yet",
+    ("obs", "profile_seconds"): "on-demand profiler captures of the JAX "
+                                "CLIs and serve.py; the port has neither "
+                                "yet",
 }
 
 
@@ -273,6 +404,9 @@ _UNPORTED_TRAINING = (
     ("resilience", "chaos_nan_step", 0),
     ("resilience", "chaos_sigterm_step", 0),
     ("resilience", "chaos_truncate_step", 0),
+    ("resilience", "chaos_preempt_rank_at_step", ""),
+    ("resilience", "chaos_kill_rank_at_step", ""),
+    ("resilience", "chaos_stall_rank_at_step", ""),
     ("obs", "metrics_jsonl", ""),
     ("obs", "trace_path", ""),
 )
@@ -336,6 +470,24 @@ class Config:
                     f"{section}.{name}={value!r} is not in the PyTorch port "
                     f"yet (its trainer takes {name}={only!r} only)")
 
+    def check_servable(self) -> None:
+        """Refuse, with a clear message, a config whose serving asks for
+        what the port's engine and batcher do not do: retried dispatches
+        (``resilience.dispatch_attempts`` above 1; the port makes one
+        attempt and raises) or the dense rebuild after a kernel failure
+        (``inference.attend_fallback``; the port raises). Called by
+        ``InferenceEngine``. A training run reads neither, so the load
+        takes them: the JAX package's own ``to_dict`` writes its defaults,
+        2 and true."""
+        r, inf = self.resilience, self.inference
+        for section, name, value, only in (
+                ("resilience", "dispatch_attempts", r.dispatch_attempts, 1),
+                ("inference", "attend_fallback", inf.attend_fallback, False)):
+            if value != only:
+                raise ValueError(
+                    f"{section}.{name}={value!r} is not in the PyTorch port "
+                    f"yet (it serves {name}={only!r} only)")
+
     def validate(self) -> None:
         """The JAX package's checks, with its messages, for the fields the
         port reads."""
@@ -379,6 +531,8 @@ class Config:
         if t.grad_accum_dtype not in ("float32", "param"):
             raise ValueError(
                 f"unknown grad_accum_dtype {t.grad_accum_dtype!r} (float32|param)")
+        if self.resilience.dispatch_attempts < 1:
+            raise ValueError("dispatch_attempts must be >= 1")
         if self.resilience.anomaly_policy not in ("skip", "rollback", "abort"):
             raise ValueError(
                 f"unknown anomaly_policy {self.resilience.anomaly_policy!r} "
@@ -441,14 +595,13 @@ class Config:
             known = {f.name for f in dataclasses.fields(dc)}
             return dc(**{k: v for k, v in section.items() if k in known})
 
-        for section, unported in (("inference", _UNPORTED_INFERENCE),
-                                  ("resilience", _UNPORTED_SERVING_CHAOS)):
-            sec_raw = raw.get(section) or {}
-            for name, only in unported.items():
-                if name in sec_raw and sec_raw[name] != only:
-                    raise ValueError(
-                        f"{section}.{name}={sec_raw[name]!r} is not in the "
-                        f"PyTorch port yet (it serves {name}={only!r} only)")
+        for (section, name), only in REFUSED_AT_LOAD.items():
+            value = (raw.get(section) or {}).get(name, only[0])
+            if value not in only:
+                served = " or ".join(repr(v) for v in only)
+                raise ValueError(
+                    f"{section}.{name}={value!r} is not in the PyTorch port "
+                    f"yet (it serves {name}={served} only)")
         sections = {f.name: f.default_factory for f in dataclasses.fields(cls)}
         cfg = cls(**{name: build(dc, raw.get(name) or {})
                      for name, dc in sections.items()})

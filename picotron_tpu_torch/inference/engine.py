@@ -84,6 +84,7 @@ class InferenceEngine:
                  weight_dtype: str | None = None,
                  cache_dtype=None, adapters=None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
+        self.cfg.check_servable()
         self.device = resolve_device(device)
         m, inf = self.cfg.model, self.cfg.inference
         self.slots = int(slots)

@@ -25,12 +25,18 @@
 // blocks, one per (split, row block, kv head, slot), so that a decode step
 // of 8 slots fills the card (at T = 2048, 16 splits of one 128-key tile:
 // 4,096 blocks for 32 kv heads) and each block reads only the live rows of
-// its split, its copies in flight while it computes; a second launch
-// merges the splits. GQA folds the g = H / Hkv query heads that share a kv
-// head into the rows of one block (row = s * g + head-in-group), so each
-// K/V byte is read once per kv head and split, never repeated per query
-// head. The caller passes the plan (n_splits) and an fp32 workspace of
-// n_splits * B * S * H * (D + 2) values.
+// its split, its copies in flight while it computes; the last block of a
+// row block to finish merges its splits, so a call is one launch. GQA folds
+// the g = H / Hkv query heads that share a kv head into the rows of one
+// block (row = s * g + head-in-group), so each K/V byte is read once per kv
+// head and split, never repeated per query head. Decode rows (S * g <= 16)
+// run their products on the fp32 pipes; chunk rows (a prefill chunk over a
+// cached prefix, about S * g operations for each K/V byte read, so at S =
+// 512 near or past the balance point) run them on the bf16 tensor cores,
+// one warpgroup per 64 rows, with p kept to fp32 precision as two bf16
+// halves. The caller passes the plan (n_splits), an
+// fp32 workspace of n_splits * B * S * H * (D + 2) values and the zeroed
+// int32 counters, one per (slot, kv head, row block).
 
 #include "attention_tile.cuh"
 
@@ -38,46 +44,47 @@ namespace {
 
 using picotron::Bf16KV;
 using picotron::Int8KV;
-using picotron::kChunkRows;
+using picotron::kMmaRows;
 using picotron::kSmallRows;
+using picotron::kThreads;
 using picotron::Partials;
 
 // grid (row blocks x n_splits, Hkv, B): split fastest
 template <int D, int kR>
-__global__ void __launch_bounds__(picotron::block_threads(kR))
+__global__ void __launch_bounds__(kThreads,
+                                  picotron::min_blocks<D, kR, Bf16KV>())
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    const int* __restrict__ lengths, Partials ws, int S,
-                    int H, int Hkv, int T, int n_splits, int tiles_per_split,
-                    float scale) {
+                    const int* __restrict__ lengths, Partials ws,
+                    int* __restrict__ counters, __nv_bfloat16* __restrict__ o,
+                    int S, int H, int Hkv, int T, int n_splits,
+                    int tiles_per_split, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int split = static_cast<int>(blockIdx.x) % n_splits;
-  const int row0 = static_cast<int>(blockIdx.x) / n_splits * kR;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const size_t stride = static_cast<size_t>(Hkv) * D;
   const size_t head0 = static_cast<size_t>(b) * T * stride +
                        static_cast<size_t>(kvh) * D;
   const Bf16KV kv{k + head0, v + head0, stride};
-  picotron::attend_split<D, kR>(smem_raw, kv, q, b, kvh, row0, S, H, Hkv,
-                                lengths[b], T, split, tiles_per_split, scale,
-                                ws);
+  picotron::attend<D, kR>(smem_raw, kv, q, b, kvh, S, H, Hkv, lengths[b], T,
+                          n_splits, tiles_per_split, scale, ws, counters, o);
 }
 
 template <int D, int kR>
-__global__ void __launch_bounds__(picotron::block_threads(kR))
+__global__ void __launch_bounds__(kThreads,
+                                  picotron::min_blocks<D, kR, Int8KV>())
 flash_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
                          const int8_t* __restrict__ k,
                          const int8_t* __restrict__ v,
                          const float* __restrict__ k_scale,
                          const float* __restrict__ v_scale,
-                         const int* __restrict__ lengths, Partials ws, int S,
-                         int H, int Hkv, int T, int n_splits,
-                         int tiles_per_split, float scale) {
+                         const int* __restrict__ lengths, Partials ws,
+                         int* __restrict__ counters,
+                         __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                         int T, int n_splits, int tiles_per_split,
+                         float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int split = static_cast<int>(blockIdx.x) % n_splits;
-  const int row0 = static_cast<int>(blockIdx.x) / n_splits * kR;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const size_t stride = static_cast<size_t>(Hkv) * D;
@@ -86,121 +93,114 @@ flash_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t shead0 = static_cast<size_t>(b) * T * Hkv + kvh;
   const Int8KV kv{k + head0, v + head0, k_scale + shead0, v_scale + shead0,
                   stride, static_cast<size_t>(Hkv)};
-  picotron::attend_split<D, kR>(smem_raw, kv, q, b, kvh, row0, S, H, Hkv,
-                                lengths[b], T, split, tiles_per_split, scale,
-                                ws);
+  picotron::attend<D, kR>(smem_raw, kv, q, b, kvh, S, H, Hkv, lengths[b], T,
+                          n_splits, tiles_per_split, scale, ws, counters, o);
 }
 
+// The shapes and pointers every launch shares.
+struct Call {
+  const void* q;
+  const int* lengths;
+  void* o;
+  void* ws;
+  void* counters;
+  int B, S, H, Hkv, T, n_splits, per;
+  float scale;
+  cudaStream_t stream;
+
+  dim3 grid(int kR) const {
+    return dim3(((S * (H / Hkv) + kR - 1) / kR) * n_splits, Hkv, B);
+  }
+  Partials partials(int D) const {
+    return picotron::partials_of(ws, n_splits, B * S * H, D);
+  }
+};
+
 template <int D, int kR>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, void* ws, int B, int S, int H, int Hkv, int T,
-           int n_splits, int per, float scale, cudaStream_t stream) {
-  const int smem = picotron::smem_bytes<D, kR, Bf16KV>(per);
+int launch(const Call& c, const void* k, const void* v) {
+  const int smem = picotron::smem_bytes<D, kR, Bf16KV>(c.per);
   cudaError_t e = cudaFuncSetAttribute(
       flash_decode_kernel<D, kR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_vec = B * S * H;
-  const int row_blocks = (S * (H / Hkv) + kR - 1) / kR;
-  const dim3 grid(row_blocks * n_splits, Hkv, B);
-  flash_decode_kernel<D, kR>
-      <<<grid, picotron::block_threads(kR), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
+  flash_decode_kernel<D, kR><<<c.grid(kR), kThreads, smem, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths,
-      picotron::partials_of(ws, n_splits, n_vec, D), S, H, Hkv, T, n_splits,
-      per, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return picotron::launch_merge<D>(ws, n_splits, n_vec, o, stream);
+      static_cast<const __nv_bfloat16*>(v), c.lengths, c.partials(D),
+      static_cast<int*>(c.counters), static_cast<__nv_bfloat16*>(c.o), c.S,
+      c.H, c.Hkv, c.T, c.n_splits, c.per, c.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int kR>
-int launch_int8(const void* q, const void* k, const void* v,
-                const void* k_scale, const void* v_scale, const int* lengths,
-                void* o, void* ws, int B, int S, int H, int Hkv, int T,
-                int n_splits, int per, float scale, cudaStream_t stream) {
-  const int smem = picotron::smem_bytes<D, kR, Int8KV>(per);
+int launch_int8(const Call& c, const void* k, const void* v,
+                const void* k_scale, const void* v_scale) {
+  const int smem = picotron::smem_bytes<D, kR, Int8KV>(c.per);
   cudaError_t e = cudaFuncSetAttribute(
       flash_decode_int8_kernel<D, kR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_vec = B * S * H;
-  const int row_blocks = (S * (H / Hkv) + kR - 1) / kR;
-  const dim3 grid(row_blocks * n_splits, Hkv, B);
-  flash_decode_int8_kernel<D, kR>
-      <<<grid, picotron::block_threads(kR), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
+  flash_decode_int8_kernel<D, kR><<<c.grid(kR), kThreads, smem, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), lengths,
-      picotron::partials_of(ws, n_splits, n_vec, D), S, H, Hkv, T, n_splits,
-      per, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return picotron::launch_merge<D>(ws, n_splits, n_vec, o, stream);
+      static_cast<const float*>(v_scale), c.lengths, c.partials(D),
+      static_cast<int*>(c.counters), static_cast<__nv_bfloat16*>(c.o), c.S,
+      c.H, c.Hkv, c.T, c.n_splits, c.per, c.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o: [B, S, H, D]; k, v: [B, T, Hkv, D]; bf16, contiguous; lengths: [B]
-// int32 on the device; ws: n_splits * B * S * H * (D + 2) fp32 values; D
-// in {64, 128}; n_splits from decode_attention.split_plan.
+// int32 on the device; ws: n_splits * B * S * H * (D + 2) fp32 values;
+// counters: B * Hkv * ceil(S * (H / Hkv) / rows) int32, all zero (rows 16
+// when S * (H / Hkv) <= 16, else 64), zero again on return; D in {64,
+// 128}; n_splits from decode_attention.split_plan.
 extern "C" int picotron_flash_decode(const void* q, const void* k,
                                      const void* v, const void* lengths,
-                                     void* o, void* ws, int B, int S, int H,
-                                     int Hkv, int T, int D, int n_splits,
-                                     float scale, void* stream) {
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                     void* o, void* ws, void* counters, int B,
+                                     int S, int H, int Hkv, int T, int D,
+                                     int n_splits, float scale,
+                                     void* stream) {
   const int per = picotron::tiles_per_split_of(T, n_splits);
   if (per < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Call c{q, static_cast<const int*>(lengths), o, ws, counters, B, S,
+               H, Hkv, T, n_splits, per, scale,
+               static_cast<cudaStream_t>(stream)};
   const bool small = S * (H / Hkv) <= kSmallRows;
   switch (D) {
     case 64:
-      return small ? launch<64, kSmallRows>(q, k, v, len, o, ws, B, S, H,
-                                            Hkv, T, n_splits, per, scale, st)
-                   : launch<64, kChunkRows>(q, k, v, len, o, ws, B, S, H,
-                                            Hkv, T, n_splits, per, scale, st);
+      return small ? launch<64, kSmallRows>(c, k, v)
+                   : launch<64, kMmaRows>(c, k, v);
     case 128:
-      return small ? launch<128, kSmallRows>(q, k, v, len, o, ws, B, S, H,
-                                             Hkv, T, n_splits, per, scale, st)
-                   : launch<128, kChunkRows>(q, k, v, len, o, ws, B, S, H,
-                                             Hkv, T, n_splits, per, scale,
-                                             st);
+      return small ? launch<128, kSmallRows>(c, k, v)
+                   : launch<128, kMmaRows>(c, k, v);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // q, o: [B, S, H, D] bf16; k, v: [B, T, Hkv, D] int8; k_scale, v_scale:
-// [B, T, Hkv] fp32; all contiguous; lengths: [B] int32 on the device; ws
-// and n_splits as for picotron_flash_decode; D in {64, 128}.
+// [B, T, Hkv] fp32; all contiguous; lengths: [B] int32 on the device; ws,
+// counters and n_splits as for picotron_flash_decode; D in {64, 128}.
 extern "C" int picotron_flash_decode_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* lengths, void* o, void* ws, int B,
-    int S, int H, int Hkv, int T, int D, int n_splits, float scale,
-    void* stream) {
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const void* v_scale, const void* lengths, void* o, void* ws,
+    void* counters, int B, int S, int H, int Hkv, int T, int D, int n_splits,
+    float scale, void* stream) {
   const int per = picotron::tiles_per_split_of(T, n_splits);
   if (per < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Call c{q, static_cast<const int*>(lengths), o, ws, counters, B, S,
+               H, Hkv, T, n_splits, per, scale,
+               static_cast<cudaStream_t>(stream)};
   const bool small = S * (H / Hkv) <= kSmallRows;
   switch (D) {
     case 64:
-      return small ? launch_int8<64, kSmallRows>(q, k, v, k_scale, v_scale,
-                                                 len, o, ws, B, S, H, Hkv, T,
-                                                 n_splits, per, scale, st)
-                   : launch_int8<64, kChunkRows>(q, k, v, k_scale, v_scale,
-                                                 len, o, ws, B, S, H, Hkv, T,
-                                                 n_splits, per, scale, st);
+      return small ? launch_int8<64, kSmallRows>(c, k, v, k_scale, v_scale)
+                   : launch_int8<64, kMmaRows>(c, k, v, k_scale, v_scale);
     case 128:
-      return small ? launch_int8<128, kSmallRows>(q, k, v, k_scale, v_scale,
-                                                  len, o, ws, B, S, H, Hkv,
-                                                  T, n_splits, per, scale, st)
-                   : launch_int8<128, kChunkRows>(q, k, v, k_scale, v_scale,
-                                                  len, o, ws, B, S, H, Hkv,
-                                                  T, n_splits, per, scale,
-                                                  st);
+      return small ? launch_int8<128, kSmallRows>(c, k, v, k_scale, v_scale)
+                   : launch_int8<128, kMmaRows>(c, k, v, k_scale, v_scale);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

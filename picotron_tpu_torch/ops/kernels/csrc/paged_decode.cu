@@ -31,15 +31,17 @@
 // byte. Pages add the table: the entries a split spans, once per (slot, kv
 // head, row block, split), read into shared memory.
 //
-// Design: attend_split of attention_tile.cuh, the split walk of contiguous
-// C, with a paged tile source (Paged<Bf16KV>, Paged<Int8KV>, MixedKV): one
-// block per (split, row block, kv head, slot), walking only the tiles of
-// its split that hold a visible key; at its start the block copies its
-// split's page ids (and, for mixed pages, their flags) into shared memory,
-// and every key copy goes through them; a second launch merges the splits.
-// The plan (n_splits) is the contiguous call's for the same window
-// (max_pages * page_len keys), so on the same rows each variant is bit for
-// bit its contiguous twin: the arithmetic is the same code.
+// Design: the split walk of contiguous C (attention_tile.cuh) with a paged
+// tile source (Paged<Bf16KV>, Paged<Int8KV>, MixedKV): one block per
+// (split, row block, kv head, slot), walking only the tiles of its split
+// that hold a visible key, decode rows on the fp32 pipes and chunk rows on
+// the bf16 tensor cores; at its start the block copies its split's page
+// ids (and, for mixed pages, their flags) into shared memory, and every key
+// copy goes through them; the last block of a row block merges its splits,
+// so a call is one launch. The plan (n_splits) is the contiguous call's for
+// the same window (max_pages * page_len keys), so on the same rows each
+// variant is bit for bit its contiguous twin: the arithmetic is the same
+// code.
 
 #include <type_traits>
 
@@ -49,19 +51,23 @@ namespace {
 
 using picotron::Bf16KV;
 using picotron::Int8KV;
-using picotron::kChunkRows;
 using picotron::kMinPageLen;
+using picotron::kMmaRows;
 using picotron::kSmallRows;
+using picotron::kThreads;
 using picotron::MixedKV;
 using picotron::PageMap;
 using picotron::Paged;
 using picotron::Partials;
+using picotron::SplitHead;
 
 // The pointers and sizes every variant shares; one per launch.
 struct PagedArgs {
   const __nv_bfloat16* q;
   const int* block_tables;  // [B, max_pages]
   const int* lengths;       // [B]
+  int* counters;            // [B, Hkv, row blocks], zero between launches
+  __nv_bfloat16* o;
   int S, H, Hkv, max_pages, page_shift, n_splits, tiles_per_split;
   float scale;
 };
@@ -81,7 +87,8 @@ using SourceOf = std::conditional_t<
 // the scale pools; page_quant: the mixed variant's flags. Grid (row blocks
 // x n_splits, Hkv, B): split fastest.
 template <int D, int kR, int V>
-__global__ void __launch_bounds__(picotron::block_threads(kR))
+__global__ void __launch_bounds__(kThreads,
+                                  picotron::min_blocks<D, kR, SourceOf<V>>())
 flash_decode_paged_kernel(PagedArgs a, Partials ws,
                           const void* __restrict__ k,
                           const void* __restrict__ v,
@@ -91,15 +98,13 @@ flash_decode_paged_kernel(PagedArgs a, Partials ws,
                           const float* __restrict__ vs,
                           const int* __restrict__ page_quant) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<picotron::Smem<D, kR>*>(smem_raw);
-  const int split = static_cast<int>(blockIdx.x) % a.n_splits;
-  const int row0 = static_cast<int>(blockIdx.x) / a.n_splits * kR;
+  auto& head = *reinterpret_cast<SplitHead*>(smem_raw);
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const size_t stride = static_cast<size_t>(a.Hkv) * D;
   const size_t hkv = static_cast<size_t>(a.Hkv);
   const PageMap map{a.block_tables + static_cast<size_t>(b) * a.max_pages,
-                    sm.pages, a.max_pages, a.page_shift, 0};
+                    head.pages, a.max_pages, a.page_shift, 0};
   const int n_keys = a.max_pages << a.page_shift;
   SourceOf<V> src;
   if constexpr (V == kInt8) {
@@ -116,16 +121,16 @@ flash_decode_paged_kernel(PagedArgs a, Partials ws,
       src = MixedKV{hot,
                     Int8KV{kq + kvh * D, vq + kvh * D, ks + kvh, vs + kvh,
                            stride, hkv},
-                    map, page_quant, sm.quant};
+                    map, page_quant, head.quant};
     }
   }
-  picotron::attend_split<D, kR>(smem_raw, src, a.q, b, kvh, row0, a.S, a.H,
-                                a.Hkv, a.lengths[b], n_keys, split,
-                                a.tiles_per_split, a.scale, ws);
+  picotron::attend<D, kR>(smem_raw, src, a.q, b, kvh, a.S, a.H, a.Hkv,
+                          a.lengths[b], n_keys, a.n_splits,
+                          a.tiles_per_split, a.scale, ws, a.counters, a.o);
 }
 
 template <int D, int kR, int V>
-int launch(const PagedArgs& a, int B, void* o, void* ws, const void* k,
+int launch(const PagedArgs& a, int B, void* ws, const void* k,
            const void* v, const int8_t* kq, const int8_t* vq,
            const float* ks, const float* vs, const int* page_quant,
            cudaStream_t stream) {
@@ -138,13 +143,10 @@ int launch(const PagedArgs& a, int B, void* o, void* ws, const void* k,
   const int n_vec = B * a.S * a.H;
   const int row_blocks = (a.S * (a.H / a.Hkv) + kR - 1) / kR;
   const dim3 grid(row_blocks * a.n_splits, a.Hkv, B);
-  flash_decode_paged_kernel<D, kR, V>
-      <<<grid, picotron::block_threads(kR), smem, stream>>>(
+  flash_decode_paged_kernel<D, kR, V><<<grid, kThreads, smem, stream>>>(
       a, picotron::partials_of(ws, a.n_splits, n_vec, D), k, v, kq, vq, ks,
       vs, page_quant);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return picotron::launch_merge<D>(ws, a.n_splits, n_vec, o, stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // log2(page_len), or -1 unless page_len is a power of two >= kMinPageLen
@@ -159,9 +161,9 @@ template <int V>
 int dispatch(const void* q, const void* k, const void* v, const void* kq,
              const void* vq, const void* ks, const void* vs,
              const void* page_quant, const void* block_tables,
-             const void* lengths, void* o, void* ws, int B, int S, int H,
-             int Hkv, int page_len, int max_pages, int D, int n_splits,
-             float scale, void* stream) {
+             const void* lengths, void* o, void* ws, void* counters, int B,
+             int S, int H, int Hkv, int page_len, int max_pages, int D,
+             int n_splits, float scale, void* stream) {
   const int shift = page_shift_of(page_len);
   if (shift < 0 || max_pages < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -171,6 +173,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* kq,
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q),
                     static_cast<const int*>(block_tables),
                     static_cast<const int*>(lengths),
+                    static_cast<int*>(counters),
+                    static_cast<__nv_bfloat16*>(o),
                     S, H, Hkv, max_pages, shift, n_splits, per, scale};
   const auto* kq8 = static_cast<const int8_t*>(kq);
   const auto* vq8 = static_cast<const int8_t*>(vq);
@@ -181,15 +185,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* kq,
   const bool small = S * (H / Hkv) <= kSmallRows;
   switch (D) {
     case 64:
-      return small ? launch<64, kSmallRows, V>(a, B, o, ws, k, v, kq8, vq8,
-                                               ksf, vsf, pq, st)
-                   : launch<64, kChunkRows, V>(a, B, o, ws, k, v, kq8, vq8,
-                                               ksf, vsf, pq, st);
+      return small ? launch<64, kSmallRows, V>(a, B, ws, k, v, kq8, vq8, ksf,
+                                               vsf, pq, st)
+                   : launch<64, kMmaRows, V>(a, B, ws, k, v, kq8, vq8, ksf,
+                                             vsf, pq, st);
     case 128:
-      return small ? launch<128, kSmallRows, V>(a, B, o, ws, k, v, kq8, vq8,
+      return small ? launch<128, kSmallRows, V>(a, B, ws, k, v, kq8, vq8,
                                                 ksf, vsf, pq, st)
-                   : launch<128, kChunkRows, V>(a, B, o, ws, k, v, kq8, vq8,
-                                                ksf, vsf, pq, st);
+                   : launch<128, kMmaRows, V>(a, B, ws, k, v, kq8, vq8, ksf,
+                                              vsf, pq, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -200,16 +204,18 @@ int dispatch(const void* q, const void* k, const void* v, const void* kq,
 // Every pointer is contiguous device memory. q, o: [B, S, H, D] bf16;
 // k, v: the bf16 pool [P, page_len, Hkv, D]; block_tables: [B, max_pages]
 // int32; lengths: [B] int32; ws: n_splits * B * S * H * (D + 2) fp32
-// values; D in {64, 128}; page_len a power of two >= 8; n_splits from
+// values; counters: zeroed int32, as for picotron_flash_decode; D in {64,
+// 128}; page_len a power of two >= 8; n_splits from
 // decode_attention.split_plan over max_pages * page_len keys.
 extern "C" int picotron_flash_decode_paged(
     const void* q, const void* k, const void* v, const void* block_tables,
-    const void* lengths, void* o, void* ws, int B, int S, int H, int Hkv,
-    int page_len, int max_pages, int D, int n_splits, float scale,
-    void* stream) {
+    const void* lengths, void* o, void* ws, void* counters, int B, int S,
+    int H, int Hkv, int page_len, int max_pages, int D, int n_splits,
+    float scale, void* stream) {
   return dispatch<kBf16>(q, k, v, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, block_tables, lengths, o, ws, B, S, H, Hkv,
-                         page_len, max_pages, D, n_splits, scale, stream);
+                         nullptr, block_tables, lengths, o, ws, counters, B,
+                         S, H, Hkv, page_len, max_pages, D, n_splits, scale,
+                         stream);
 }
 
 // As picotron_flash_decode_paged, with k, v the int8 pool
@@ -218,11 +224,13 @@ extern "C" int picotron_flash_decode_paged(
 extern "C" int picotron_flash_decode_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* block_tables, const void* lengths,
-    void* o, void* ws, int B, int S, int H, int Hkv, int page_len,
-    int max_pages, int D, int n_splits, float scale, void* stream) {
+    void* o, void* ws, void* counters, int B, int S, int H, int Hkv,
+    int page_len, int max_pages, int D, int n_splits, float scale,
+    void* stream) {
   return dispatch<kInt8>(q, nullptr, nullptr, k, v, k_scale, v_scale,
-                         nullptr, block_tables, lengths, o, ws, B, S, H, Hkv,
-                         page_len, max_pages, D, n_splits, scale, stream);
+                         nullptr, block_tables, lengths, o, ws, counters, B,
+                         S, H, Hkv, page_len, max_pages, D, n_splits, scale,
+                         stream);
 }
 
 // As picotron_flash_decode_paged, with both pools: k, v bf16 and k_quant,
@@ -233,10 +241,11 @@ extern "C" int picotron_flash_decode_mixed(
     const void* q, const void* k, const void* v, const void* k_quant,
     const void* v_quant, const void* k_scale, const void* v_scale,
     const void* page_quant, const void* block_tables, const void* lengths,
-    void* o, void* ws, int B, int S, int H, int Hkv, int page_len,
-    int max_pages, int D, int n_splits, float scale, void* stream) {
+    void* o, void* ws, void* counters, int B, int S, int H, int Hkv,
+    int page_len, int max_pages, int D, int n_splits, float scale,
+    void* stream) {
   return dispatch<kMixed>(q, k, v, k_quant, v_quant, k_scale, v_scale,
-                          page_quant, block_tables, lengths, o, ws, B, S, H,
-                          Hkv, page_len, max_pages, D, n_splits, scale,
-                          stream);
+                          page_quant, block_tables, lengths, o, ws, counters,
+                          B, S, H, Hkv, page_len, max_pages, D, n_splits,
+                          scale, stream);
 }

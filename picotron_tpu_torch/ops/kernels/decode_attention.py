@@ -38,12 +38,17 @@ arithmetic on it.
 
 Every variant splits its walk over the window across blocks
 (csrc/attention_tile.cuh): ``split_plan`` cuts the window into ranges of
-whole 128-key tiles from the shapes alone, each block writes fp32 partials
-(m, l, the unnormalised accumulator) for its range to a workspace the
-wrapper allocates, and a second kernel merges them in split order. One
-call of a wrapper makes both launches and counts once.
-``flash_decode_attention_split_plain`` models that arithmetic in plain
-PyTorch for the tests.
+whole 128-key tiles from the shapes alone, each block of a range that
+holds a visible key writes fp32 partials (m, l, the unnormalised
+accumulator) for it to a workspace the wrapper allocates, and the last such
+block of each row block to finish merges them in split order, counted on
+an int32 counter that the wrapper keeps zeroed per device (``COUNTERS``).
+One call of a wrapper is one launch and counts once. Decode rows (S x g
+<= 16) run their products on the fp32 pipes; chunk rows on the bf16
+tensor cores, p split into two bf16 halves.
+``flash_decode_attention_split_plain`` models the split walk in plain
+PyTorch for the tests, and ``flash_decode_attention_mma_plain`` the
+tensor-core arithmetic of chunk rows.
 """
 
 from __future__ import annotations
@@ -77,6 +82,8 @@ KERNEL_MIXED = build.Kernel(
 HEAD_DIMS = (64, 128)  # head_dim values the kernel is compiled for
 TILE_KEYS = 128  # keys per tile of the walk (attention_tile.cuh kKeys)
 SMALL_ROWS = 16  # S * g at or under it: decode's row tile (kSmallRows)
+MMA_ROWS = 64  # chunks' row tile, the wgmma M (kMmaRows)
+MMA_KEYS = 64  # keys per step of a chunk's walk, the wgmma N (kSubKeys)
 MAX_SPLIT_TILES = 8  # tiles a split may hold (kMaxSplitTiles)
 
 
@@ -120,6 +127,26 @@ def _workspace(q: torch.Tensor, n_splits: int) -> torch.Tensor:
     B, S, H, D = q.shape
     return torch.empty(n_splits * B * S * H * (D + 2), dtype=torch.float32,
                        device=q.device)
+
+
+# device -> the merge's int32 counters, one per (slot, kv head, row block);
+# a kernel leaves every counter it used at zero, so the buffer is zeroed
+# once, when it is made or grown, and never per call. Calls that share it
+# run one at a time (one stream).
+COUNTERS: dict = {}
+
+
+def _counters(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    B, S, H, _ = q.shape
+    rows = S * (H // k.shape[2])
+    tile = SMALL_ROWS if rows <= SMALL_ROWS else MMA_ROWS
+    need = B * k.shape[2] * -(-rows // tile)
+    buf = COUNTERS.get(q.device)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(max(need, 4096), dtype=torch.int32,
+                          device=q.device)
+        COUNTERS[q.device] = buf
+    return buf
 
 
 def flash_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -175,6 +202,71 @@ def flash_decode_attention_split_plain(q, k, v, lengths,
                                                       0.0)), 0.0)
         acc = torch.einsum("bkgst,btkd->bkgsd", p, v[:, lo:hi].float())
         parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    m = torch.stack([mi for mi, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for mi, li, ai in parts:  # in split order; empty partials add nothing
+        live = torch.isfinite(mi)
+        w = torch.where(live, torch.exp(mi - torch.where(live, m, 0.0)), 0.0)
+        l = l + li * w
+        acc = acc + ai * w
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, nh, D).to(q.dtype)
+
+
+def flash_decode_attention_mma_plain(q, k, v, lengths, scale, k_scale=None,
+                                     v_scale=None) -> torch.Tensor:
+    """A plain model of the kernels' chunk rows on the tensor cores (not a
+    plain version the wrapper runs): the window cut as ``split_plan``
+    cuts it, each split walked in 64-key steps with an online softmax.
+    Scores are products of q and K rounded to bf16 (int8 K values, exact
+    in bf16), summed in fp32, times each key's K scale, times ``scale``;
+    p stays fp32 and l sums it; p times each key's V scale is split into
+    hi = bf16(p) and lo = bf16(p - hi), and hi @ V + lo @ V accumulates in
+    fp32; the splits merge in split order, zeros where l == 0. k/v: bf16
+    [B, T, Hkv, D], or int8 with ``k_scale``/``v_scale`` [B, T, Hkv].
+    Returns [B, S, H, D] in q.dtype."""
+    B, S, nh, D = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    n_splits, per = split_plan(T, S * g)
+    bf = torch.bfloat16
+    qg = q.to(bf).float().reshape(B, S, nkv, g, D)
+    kf, vf = k.to(bf).float(), v.to(bf).float()
+    ones = torch.ones(B, T, nkv, device=q.device)
+    # [B, T, Hkv] -> [B, Hkv, 1, 1, T], beside the scores
+    ks, vs = ((ones if sc is None else sc.float()).permute(0, 2, 1)
+              [:, :, None, None] for sc in (k_scale, v_scale))
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, kf) * ks * scale
+    pos_q = (lengths.long()[:, None] - S
+             + torch.arange(S, device=q.device)[None, :])  # [B, S]
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= pos_q[:, :, None])[:, None, None]  # [B, 1, 1, S, T]
+    neg_inf = float("-inf")
+    scores = torch.where(mask, scores, neg_inf)
+    parts = []
+    for i in range(n_splits):
+        m = torch.full(scores.shape[:-1] + (1,), neg_inf, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, nkv, g, S, D, device=q.device)
+        lo_key = i * per * TILE_KEYS
+        for t0 in range(lo_key, min(lo_key + per * TILE_KEYS, T), MMA_KEYS):
+            t1 = min(t0 + MMA_KEYS, T)
+            s = scores[..., t0:t1]
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            dead = m_new == neg_inf
+            alpha = torch.where(dead, 1.0, torch.exp(m - m_new))
+            p = torch.where(s == neg_inf, 0.0,
+                            torch.exp(s - torch.where(dead, 0.0, m_new)))
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            pv = p * vs[..., t0:t1]
+            hi = pv.to(bf).float()
+            lo = (pv - hi).to(bf).float()
+            acc = (acc * alpha
+                   + torch.einsum("bkgst,btkd->bkgsd", hi, vf[:, t0:t1])
+                   + torch.einsum("bkgst,btkd->bkgsd", lo, vf[:, t0:t1]))
+            m = m_new
+        parts.append((m, l, acc))
     m = torch.stack([mi for mi, _, _ in parts]).amax(dim=0)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(parts[0][2])
@@ -395,19 +487,19 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
         return out
     n_splits, _ = plan_for(q, k)
     ws = _workspace(q, n_splits)
-    dims = (B, S, H, k.shape[2], k.shape[1], D, n_splits, float(scale),
+    tail = (out.data_ptr(), ws.data_ptr(), _counters(q, k).data_ptr(),
+            B, S, H, k.shape[2], k.shape[1], D, n_splits, float(scale),
             build.stream_of(q))
     if quantized:
         rc = build.library().picotron_flash_decode_int8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), *dims)
+            v_scale.data_ptr(), lengths.data_ptr(), *tail)
         build.check(rc, KERNEL_INT8)
         KERNEL_INT8.launches += 1
     else:
         rc = build.library().picotron_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), *dims)
+            *tail)
         build.check(rc, KERNEL)
         KERNEL.launches += 1
     return out
@@ -437,7 +529,7 @@ def _launch_paged(q, k, v, lengths, scale, k_scale, v_scale, block_tables,
     dims = (B, S, H, k.shape[2], k.shape[1], block_tables.shape[1], D,
             n_splits, float(scale), build.stream_of(q))
     tail = (block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            ws.data_ptr())
+            ws.data_ptr(), _counters(q, k).data_ptr())
     lib = build.library()
     if mixed:
         rc = lib.picotron_flash_decode_mixed(

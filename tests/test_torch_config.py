@@ -1,0 +1,118 @@
+"""The port's config against the JAX package's, on the CPU.
+
+Every field of every section of ``picotron_tpu.config.Config`` must be
+declared by the port's ``Config``, refused at load when set to a value the
+port does not behave as (``REFUSED_AT_LOAD``), or listed as inert with its
+reason (``INERT_FIELDS``): a config never runs on the port without the
+behaviour it asks for. The refusals name their field (two serving fields
+are refused where serving starts, ``Config.check_servable``), and the
+bundled configs (``configs/*/config.json``) all load.
+"""
+
+import dataclasses
+import os
+
+import pytest
+import torch
+
+from picotron_tpu.config import Config as JaxConfig
+from picotron_tpu_torch import config as port_config
+from picotron_tpu_torch.config import Config
+from picotron_tpu_torch.inference.engine import InferenceEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(os.listdir(os.path.join(REPO, "configs")))
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def _fields(cls) -> dict:
+    """section -> the names of its fields, for a top-level ``Config``."""
+    return {f.name: [g.name for g in dataclasses.fields(f.default_factory)]
+            for f in dataclasses.fields(cls)}
+
+
+JAX_FIELDS = [(section, name)
+              for section, names in _fields(JaxConfig).items()
+              for name in names]
+
+
+@pytest.mark.parametrize("section, name", JAX_FIELDS)
+def test_every_jax_field_is_declared_refused_or_inert(section, name):
+    declared = name in _fields(Config).get(section, ())
+    refused = (section, name) in port_config.REFUSED_AT_LOAD
+    inert = (section, name) in port_config.INERT_FIELDS
+    assert declared + refused + inert == 1, (
+        f"{section}.{name}: declared {declared}, refused {refused}, "
+        f"inert {inert} (exactly one must hold)")
+    if inert:
+        assert port_config.INERT_FIELDS[(section, name)].strip()
+
+
+def test_the_tables_name_only_jax_fields_the_port_does_not_declare():
+    ours = _fields(Config)
+    for section, name in (*port_config.REFUSED_AT_LOAD,
+                          *port_config.INERT_FIELDS):
+        assert (section, name) in JAX_FIELDS, (section, name)
+        assert name not in ours.get(section, ()), (section, name)
+
+
+TINY_MODEL = {"num_hidden_layers": 1, "num_attention_heads": 2,
+              "num_key_value_heads": 2, "hidden_size": 16,
+              "intermediate_size": 32, "vocab_size": 32,
+              "max_position_embeddings": 16, "dtype": "float32"}
+
+
+@pytest.mark.parametrize("section, name, value, where", [
+    ("resilience", "dispatch_attempts", 2, "serve"),
+    ("inference", "attend_fallback", True, "serve"),
+    ("inference", "key_schedule", "slot", "load"),
+])
+def test_unhonoured_values_are_refused(section, name, value, where):
+    """key_schedule "slot" is refused at load. The dispatch retries and the
+    dense fallback act only when the port serves, and the JAX package's
+    own to_dict writes them at its defaults (2 and true), so the load takes
+    them and the engine refuses them (``Config.check_servable``)."""
+    refused = rf"{section}\.{name}=.* is not in the PyTorch port yet"
+    raw = {"model": TINY_MODEL, section: {name: value}}
+    if where == "load":
+        with pytest.raises(ValueError, match=refused):
+            Config.from_dict(raw)
+        only = port_config.REFUSED_AT_LOAD[(section, name)]
+    else:
+        cfg = Config.from_dict(raw)
+        with pytest.raises(ValueError, match=refused):
+            cfg.check_servable()
+        with pytest.raises(ValueError, match=refused):
+            InferenceEngine(cfg, "cpu", slots=1)
+        only = (getattr(getattr(Config(), section), name),)
+    # the values the port does behave as load and serve
+    for ok in only:
+        cfg = Config.from_dict({"model": TINY_MODEL, section: {name: ok}})
+        cfg.check_servable()
+        InferenceEngine(cfg, "cpu", slots=1)
+
+
+def test_a_jax_dump_loads_for_training():
+    """A JAX config's to_dict, every field at the JAX default (dispatch
+    retries and the dense fallback on), loads and trains; only serving
+    refuses it."""
+    raw = JaxConfig.from_dict({"model": TINY_MODEL,
+                               "training": {"seq_length": 8}}).to_dict()
+    cfg = Config.from_dict(raw)
+    cfg.check_trainable()
+    with pytest.raises(ValueError, match="not in the PyTorch port yet"):
+        cfg.check_servable()
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_bundled_config_loads(name):
+    cfg = Config.from_json(os.path.join(REPO, "configs", name,
+                                        "config.json"))
+    assert cfg.model.num_hidden_layers > 0

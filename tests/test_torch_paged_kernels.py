@@ -15,7 +15,11 @@ Every variant's kernel splits its walk over the window (``split_plan``)
 and merges the splits' partials in split order; the plain model of that
 arithmetic (``flash_decode_attention_split_plain``) is held here to the
 plain version at lengths that leave whole splits empty, and the plan to
-the shapes alone: the same for a contiguous and a paged window.
+the shapes alone: the same for a contiguous and a paged window. Chunk rows
+(S x g > 16) run on the card's tensor cores; the plain model of that
+arithmetic (``flash_decode_attention_mma_plain``: bf16 products summed in
+fp32, the K scale on the score, p x V scale split into bf16 hi and lo) is
+held to the plain version, contiguous and int8, and to the Pallas kernel.
 """
 
 import jax.numpy as jnp
@@ -267,3 +271,67 @@ def test_split_plan_is_the_same_contiguous_and_paged(page_len, max_pages,
     else:  # chunks: two tiles a split or more, at most 8 splits
         assert per >= min(2, tiles)
         assert n_splits <= 8 or tiles > 8 * kc.MAX_SPLIT_TILES
+
+
+def _bf16_values(rng, *shape):
+    """fp32 tensors holding bf16 values: what the card's kernels take,
+    in the precision the CPU checks compare in."""
+    return torch.from_numpy(_rand(rng, *shape)).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("S, nh, nkv", [(512, 4, 4), (512, 8, 2),
+                                        (100, 4, 4), (40, 8, 2)])
+def test_mma_model_matches_plain(S, nh, nkv, int8):
+    """The tensor-core model of chunk rows (bf16 q . K summed in fp32, the K
+    scale on the score, p x V scale as bf16 hi + lo, 64-key steps, the
+    merge in split order) against the plain version on the same bf16
+    inputs, at 2e-5 in fp32: the plain version sums in another order
+    (1e-5, as above) and hi + lo holds p x v_scale to about 2^-17 of its
+    size. S x g of 512 and 2048 rows (MHA, GQA) and ragged 100 and 160
+    (no multiple of 64), over lengths that leave whole splits empty; rows
+    that see no key are exactly 0."""
+    rng = np.random.default_rng(S + nh + nkv + int8)
+    lengths = [0, 1, 129, SPLIT_T]
+    B = len(lengths)
+    q = _bf16_values(rng, B, S, nh, D)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    n_splits, _ = kc.plan_for(q, torch.empty(B, SPLIT_T, nkv, D))
+    assert n_splits > 1 and S * (nh // nkv) > kc.SMALL_ROWS
+    if int8:
+        k, ks = kv_cache.quantize_kv(_bf16_values(rng, B, SPLIT_T, nkv, D))
+        v, vs = kv_cache.quantize_kv(_bf16_values(rng, B, SPLIT_T, nkv, D))
+        got = kc.flash_decode_attention_mma_plain(q, k, v, lens, D ** -0.5,
+                                                  ks, vs)
+        want = kc.flash_decode_attention_int8_plain(q, k, v, lens,
+                                                    D ** -0.5, ks, vs)
+    else:
+        k = _bf16_values(rng, B, SPLIT_T, nkv, D)
+        v = _bf16_values(rng, B, SPLIT_T, nkv, D)
+        got = kc.flash_decode_attention_mma_plain(q, k, v, lens, D ** -0.5)
+        want = kc.flash_decode_attention_plain(q, k, v, lens, D ** -0.5)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    visible = (np.asarray(lengths)[:, None] - S + np.arange(S)[None]) >= 0
+    assert not got.numpy()[~visible].any()
+
+
+def test_mma_model_matches_pallas():
+    """The tensor-core model against the Pallas kernel in interpret mode
+    (fp32 arithmetic) on the same bf16-valued inputs, int8 K/V, a ragged
+    GQA chunk (S 40, g 4: 160 rows), at 2e-5."""
+    rng = np.random.default_rng(77)
+    S, nh, nkv = 40, 8, 2
+    lengths = np.array([0, 57, 300, SPLIT_T], np.int32)
+    B = len(lengths)
+    q = _bf16_values(rng, B, S, nh, D)
+    k, ks = kv_cache.quantize_kv(_bf16_values(rng, B, SPLIT_T, nkv, D))
+    v, vs = kv_cache.quantize_kv(_bf16_values(rng, B, SPLIT_T, nkv, D))
+    scale = D ** -0.5
+    want = np.asarray(jax_flash_decode(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), jnp.asarray(lengths), scale,
+        k_scale=jnp.asarray(ks.numpy()), v_scale=jnp.asarray(vs.numpy()),
+        block_t=128, interpret=True))
+    got = kc.flash_decode_attention_mma_plain(
+        q, k, v, torch.from_numpy(lengths), scale, ks, vs)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
