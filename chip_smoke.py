@@ -10,7 +10,9 @@ Run from the root of a checkout. Phases, each of which must pass:
    them), and kernel C's instructions (``cuobjdump -sass``): each of its
    ten chunk instantiations (five variants, two head dims) must hold
    HGMMA (tensor-core) instructions, its decode instantiations none, and
-   no separate merge kernel may be left;
+   no separate merge kernel may be left; kernel G's two prefill (wgmma)
+   instantiations (tiles by TMA, by cp.async) must hold HGMMA, its two
+   split-K GEMV ones mma.sync (HMMA) and no HGMMA;
 2. every kernel against its plain PyTorch version on the card, in bf16, at
    the main paths' shapes plus a ragged and a GQA shape (B and C at
    head_dim 64 and 128, B also at S = 200, which no 64-row tile divides;
@@ -34,7 +36,11 @@ Run from the root of a checkout. Phases, each of which must pass:
    The backward kernels' library yardstick is F.rms_norm and
    F.scaled_dot_product_attention under autograd, timed as forward +
    backward less forward; G's is aten's int8-weight matmul (or cuBLAS on a
-   bf16 copy of the weight), C-int8's SDPA over a dequantized copy; C's
+   bf16 copy of the weight), and each G row also times ``torch.matmul`` on
+   a bf16 copy of the weight (what the tensor cores give the shape), reads
+   its kernel's device time from a trace (one kernel a call) and checks
+   that two calls give the same bits (its split-K counters back at zero
+   after the rows); C-int8's SDPA over a dequantized copy; C's
    paged variants (paged, paged int8, hot_bf16 mixed pages) at their
    decode shape (8 slots, 16-row pages, 128 pages per slot, a shuffled
    table whose slots share a prefix's pages and end in NULL entries,
@@ -44,12 +50,17 @@ Run from the root of a checkout. Phases, each of which must pass:
    three identities that must hold bit for bit (max |diff| = 0): paged C
    over a shuffled table = contiguous C over the same rows, paged C-int8 =
    C-int8, and mixed pages with every flag 0 (1) = paged C (paged C-int8);
-   and kernel H (the segmented LoRA residual) at SmolLM-1.7B's seven
-   projection shapes at decode (8 rows mixing the null adapter with three
-   adapters, one of rank 4 in a rank-16 pack) and at a 512-row prefill
-   chunk, at Llama-2-7B's at decode and at a ragged shape, with two
-   ``torch.bmm`` over gathered adapters as its yardstick; its null rows
-   must come out exactly 0;
+   and kernel H (the segmented LoRA residual) in both of its modes at
+   SmolLM-1.7B's seven projection shapes at decode (8 rows mixing the null
+   adapter with three adapters, one of rank 4 in a rank-16 pack) and at a
+   512-row prefill chunk, at Llama-2-7B's at decode and at a ragged shape:
+   the residual (null rows exactly 0) and the residual added into a base
+   output in place (bit for bit the residual + PyTorch's cast and add,
+   null rows bit for bit the base), each one device kernel a call, with
+   two ``torch.bmm`` over gathered adapters (and, fused, the cast and the
+   add) as its yardstick; at the SmolLM decode shape the model's seam
+   (``llama.matmul`` over an adapter leaf) must run two device kernels a
+   call, the base product and H;
 3. the serving path: SmolLM-1.7B at full width and depth (random weights
    from a fixed seed, bf16) behind InferenceEngine + ContinuousBatcher with
    ``attend_impl="flash"``, serving 8 requests (six greedy, two sampled;
@@ -287,13 +298,10 @@ def _device_ms(torch, fn, iters: int = 10) -> float | None:
     return _device_trace(torch, fn, iters)[0]
 
 
-def _sass_check(lib_path: str) -> list:
-    """Kernel C in the built library, from ``cuobjdump -sass``: each
-    instantiation's count of tensor-core (HGMMA) and fp32 FMA (FFMA)
-    instructions. The chunk walks (row tile 64) must run their products
-    on the tensor cores, the decode walks (row tile 16) on the fp32 pipes,
-    and no separate merge kernel may be left. Returns one record per
-    instantiation."""
+def _sass_counts(lib_path: str, marks: tuple) -> dict:
+    """From ``cuobjdump -sass`` of the built library: for each kernel whose
+    mangled name holds one of ``marks``, its count of tensor-core (HGMMA:
+    wgmma; HMMA: mma.sync) and fp32 FMA (FFMA) instructions."""
     from picotron_tpu_torch.ops.kernels import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -303,25 +311,41 @@ def _sass_check(lib_path: str) -> list:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "flash_decode" in m.group(1) else None
+            name = (m.group(1) if any(k in m.group(1) for k in marks)
+                    else None)
             if name:
-                counts[name] = {"HGMMA": 0, "FFMA": 0}
+                counts[name] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
         elif name:
-            for op in ("HGMMA", "FFMA"):
+            for op in counts[name]:
                 if re.search(rf"\b{op}\b", line):
                     counts[name][op] += 1
+    return counts
+
+
+def _demangled(mangled: str) -> tuple:
+    """(a kernel's own name, its integer template arguments)."""
+    k = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    base = mangled[k.end():k.end() + int(k.group(1))] if k else mangled
+    return base, [int(a) for a in re.findall(r"Li(\d+)E", mangled)]
+
+
+def _sass_check(lib_path: str) -> list:
+    """Kernel C in the built library, from ``cuobjdump -sass``: each
+    instantiation's count of tensor-core (HGMMA) and fp32 FMA (FFMA)
+    instructions. The chunk walks (row tile 64) must run their products
+    on the tensor cores, the decode walks (row tile 16) on the fp32 pipes,
+    and no separate merge kernel may be left. Returns one record per
+    instantiation."""
+    counts = _sass_counts(lib_path, ("flash_decode",))
     out = []
     for mangled, n in sorted(counts.items()):
         if "merge" in mangled:
             raise AssertionError(f"a separate merge kernel is left: "
                                  f"{mangled}")
-        k = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
-        base = (mangled[k.end():k.end() + int(k.group(1))] if k
-                else mangled)
-        args = [int(a) for a in re.findall(r"Li(\d+)E", mangled)]
+        base, args = _demangled(mangled)
         rows = args[1] if len(args) > 1 else None
         rec = {"kernel": f"{base}<{','.join(map(str, args))}>",
-               "row_tile": rows, **n}
+               "row_tile": rows, "HGMMA": n["HGMMA"], "FFMA": n["FFMA"]}
         if rows == 64 and n["HGMMA"] == 0:
             raise AssertionError(f"{rec['kernel']}: no HGMMA in a chunk "
                                  "walk")
@@ -331,6 +355,33 @@ def _sass_check(lib_path: str) -> list:
     if sum(r["row_tile"] == 64 for r in out) != 10:
         raise AssertionError(f"expected 10 chunk instantiations of C (5 "
                              f"variants x 2 head dims): {out}")
+    return out
+
+
+def _sass_quant_check(lib_path: str) -> list:
+    """Kernel G in the built library: its prefill (wgmma) instantiations,
+    fed by TMA and by cp.async, must hold HGMMA instructions; its split-K
+    GEMV ones (one and two n8 tiles of tokens) mma.sync (HMMA) and no
+    HGMMA. Returns one record per instantiation."""
+    out = []
+    for mangled, n in sorted(_sass_counts(lib_path,
+                                          ("quant_matmul",)).items()):
+        base, args = _demangled(mangled)
+        args += ["true" if b == "1" else "false"
+                 for b in re.findall(r"Lb([01])E", mangled)]
+        rec = {"kernel": f"{base}<{','.join(map(str, args))}>", **n}
+        if "wgmma" in base and n["HGMMA"] == 0:
+            raise AssertionError(f"{rec['kernel']}: no HGMMA in G's "
+                                 "prefill kernel")
+        if "splitk" in base and (n["HMMA"] == 0 or n["HGMMA"] != 0):
+            raise AssertionError(f"{rec['kernel']}: G's split-K kernel "
+                                 f"must run mma.sync only: {n}")
+        out.append(rec)
+    kinds = sorted(r["kernel"] for r in out)
+    if sum("wgmma" in k for k in kinds) != 2 \
+            or sum("splitk" in k for k in kinds) != 2:
+        raise AssertionError(f"expected G's two wgmma and two split-K "
+                             f"instantiations: {kinds}")
     return out
 
 
@@ -389,10 +440,12 @@ def _check(name, got, want, mask=None, atol=ATOL, rtol=RTOL) -> float:
     return float(err.max())
 
 
-# what C's rows, A's and H's add to their records: C's split plan, and the
-# kernels' and the library call's device time (the wrapper times include
-# the host's cost of a call, which at decode is about that of the kernels)
-DEVICE_KEYS = ("split_plan", "device_ms", "library_device_ms")
+# what C's rows, A's, G's and H's add to their records: C's split plan, and
+# the kernels' and the library call's device time (the wrapper times include
+# the host's cost of a call, which at decode is about that of the kernels);
+# G's second yardstick's (torch.matmul on a bf16 copy of the weight)
+DEVICE_KEYS = ("split_plan", "device_ms", "library_device_ms",
+               "bf16_matmul_device_ms")
 
 
 def _c_extra(torch, kc, run, lib, q, k, block_tables=None) -> dict:
@@ -601,33 +654,56 @@ def _int8_kernel_checks(torch, F, randn, record) -> None:
         x = randn(M, K)
         w = quantize_weight(randn(K, N).float() * 0.02)
         q, s = w["q"], w["s"]
-        err = _check(f"quant_matmul M={M} K={K} N={N}",
-                     kg.quant_matmul_2d(x, q, s),
-                     kg.quant_matmul_plain(x, q, s))
+        name = f"quant_matmul M={M} K={K} N={N}"
+        got = kg.quant_matmul_2d(x, q, s)
+        err = _check(name, got, kg.quant_matmul_plain(x, q, s))
+        if not torch.equal(kg.quant_matmul_2d(x, q, s), got):
+            raise AssertionError(f"{name}: two calls differ")
         # the yardstick: aten's int8-weight matmul where this torch has it
         # for CUDA, else cuBLAS on a bf16 copy of the weight made here,
         # outside the timing
-        lib_name, lib_ms = None, None
+        lib_name, lib_ms, lib = None, None, None
         if int8mm is not None:
             qt, sb = q.t().contiguous(), s.to(torch.bfloat16)
             try:
                 int8mm(x, qt, sb)
-                lib_ms = _time_ms(lambda: int8mm(x, qt, sb))
+                lib = lambda: int8mm(x, qt, sb)  # noqa: E731
+                lib_ms = _time_ms(lib)
                 lib_name = "aten._weight_int8pack_mm"
             except (RuntimeError, NotImplementedError):
                 pass
-            del qt, sb
+        # a second yardstick, never called by the port: torch.matmul on a
+        # bf16 copy of the weight (made here, outside the timing), what the
+        # tensor cores give this shape
+        wb = q.to(torch.bfloat16)
+        mm = lambda: x @ wb  # noqa: E731
         if lib_ms is None:
-            wb, sb = q.to(torch.bfloat16), s.to(torch.bfloat16)
-            lib_ms = _time_ms(lambda: (x @ wb) * sb)
-            lib_name = "matmul on a bf16 copy, times s"
-            del wb, sb
-        record(kg.KERNEL, {"M": M, "K": K, "N": N}, err,
-               _time_ms(lambda: kg.quant_matmul_2d(x, q, s)),
+            lib = mm
+            lib_ms = _time_ms(lib)
+            lib_name = "torch.matmul on a bf16 copy of the weight"
+        run = lambda: kg.quant_matmul_2d(x, q, s)  # noqa: E731
+        ms, per, names = _launches_a_call(torch, name, run, "quant_matmul")
+        record(kg.KERNEL, {"M": M, "K": K, "N": N,
+                           "plan": kg.plan(M, K, N)}, err,
+               _time_ms(run),
                _time_ms(lambda: kg.quant_matmul_plain(x, q, s)), lib_ms,
                _bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N),
-               main=(M, K, N) == (8, 4096, 11008), library=lib_name)
-        del x, w, q, s
+               main=(M, K, N) in ((8, 4096, 11008), (512, 4096, 11008),
+                                  (8, 4096, 32000)),
+               variant={(512, 4096, 11008): "prefill",
+                        (8, 4096, 32000): "lm_head"}.get((M, K, N)),
+               library=lib_name,
+               extra={"device_ms": ms, "device_kernels": names,
+                      "device_events_per_call": per,
+                      "library_device_ms": _device_ms(torch, lib),
+                      "bf16_matmul_ms": _time_ms(mm),
+                      "bf16_matmul_device_ms": _device_ms(torch, mm)})
+        del x, w, q, s, got, wb, lib, mm
+    torch.cuda.synchronize()
+    for dev, (_, counters) in kg.SCRATCH.items():
+        if bool(counters.any()):
+            raise AssertionError(f"G's split-K counters on {dev} are not all "
+                                 f"zero: {int((counters != 0).sum())} set")
     torch.cuda.empty_cache()
 
     # C-int8 at Llama-2-7B's head_dim 128 (and the chunk at 64 too): the
@@ -872,13 +948,60 @@ def _paged_kernel_checks(torch, F, randn, record) -> None:
         torch.cuda.empty_cache()
 
 
+def _launches_a_call(torch, name, fn, mark, per_call=1) -> tuple:
+    """The device side of ``fn`` from a profiler trace of 10 calls, which
+    must hold ``per_call`` device kernels a call, exactly one of whose
+    names holds ``mark`` (a trace may come back one event short, as C's
+    rows allow): (device ms of a call, events a call, kernel names)."""
+    iters = 10
+    ms, got, names = _device_trace(torch, fn, iters, per_call=per_call)
+    if sum(mark in n for n in names) != 1 or len(names) != per_call \
+            or not (per_call * iters - 1) / iters <= got <= per_call:
+        raise AssertionError(f"{name}: {got} device launches a call, not "
+                             f"{per_call} with one {mark}: {names}")
+    return ms * per_call / got, got, names
+
+
+def _fused_check(name, got, want, resid, bf16: bool) -> float:
+    """H's fused mode against its plain version: |d| <= LORA_ATOL +
+    LORA_RTOL * |plain|, and for a bf16 base one bf16 rounding step more
+    of the output and of the cast residual (2^-7 of |plain| + |residual|):
+    the kernel's residual and the plain one differ by ~1e-6, which may
+    move either rounding by a step."""
+    import torch
+
+    got, want, resid = got.float(), want.float(), resid.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    bound = LORA_ATOL + LORA_RTOL * want.abs()
+    if bf16:
+        bound = bound + 2.0 ** -7 * (want.abs() + resid.abs())
+    err = (got - want).abs()
+    bad = err > bound
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} entries outside tolerance, max abs "
+            f"err {float(err.max()):.4g}")
+    return float(err.max())
+
+
 def _lora_kernel_checks(torch, randn, record) -> None:
-    """Phase 2, kernel H: the segmented LoRA residual at the SmolLM-1.7B
-    projections' shapes at decode (8 rows, null rows among them, one
-    adapter of rank 4 in the rank-16 pack) and at a prefill chunk (1 row,
-    S = 512), Llama-2-7B's at decode, and a ragged shape with bf16 and
-    fp32 x. Null rows must come out exactly 0. The yardstick is two
-    ``torch.bmm`` over the rows' adapters gathered outside the timing."""
+    """Phase 2, kernel H in both modes: the segmented LoRA residual
+    (``segmented_lora``) and the residual added into a base output in
+    place (``segmented_lora_add_``, what the model's seam runs), at the
+    SmolLM-1.7B projections' shapes at decode (8 rows, null rows among
+    them, one adapter of rank 4 in the rank-16 pack) and at a prefill
+    chunk (1 row, S = 512), Llama-2-7B's at decode, and a ragged shape
+    with bf16 and fp32 x. Residual mode: against its plain version at
+    ``LORA_ATOL``, null rows exactly 0. Fused mode: bit for bit residual
+    mode + PyTorch's cast and add, null rows bit for bit the base, and
+    against its plain version (``_fused_check``). Both: the same bits when
+    called twice, one device kernel a call in a trace. Yardsticks: two
+    ``torch.bmm`` over the rows' adapters gathered outside the timing
+    (and, fused, PyTorch's cast and add after them). At the SmolLM decode
+    shape the seam ``llama.matmul`` over an adapter leaf on a bf16 base
+    must run two device kernels a call: the base product and H."""
+    from picotron_tpu_torch.models import llama
     from picotron_tpu_torch.ops.kernels import lora_matmul as kh
 
     dev = torch.device(DEVICE)
@@ -909,35 +1032,101 @@ def _lora_kernel_checks(torch, randn, record) -> None:
         got = kh.segmented_lora(x, a, b, ids)
         want = kh.lora_matmul_plain(x, a, b, ids)
         err = _check(name, got, want, atol=LORA_ATOL, rtol=LORA_RTOL)
+        if not torch.equal(kh.segmented_lora(x, a, b, ids), got):
+            raise AssertionError(f"{name}: two calls differ")
         null = ids == 0
         null_max = float(got[null].abs().max()) if bool(null.any()) else 0.0
         if null_max != 0.0:
             raise AssertionError(f"{name}: null rows not exactly 0 (max "
                                  f"|out| {null_max})")
+        # fused mode on a base output of x's dtype
+        base = randn(B, S, N).to(x.dtype)
+        fused = kh.segmented_lora_add_(base.clone(), x, a, b, ids)
+        if not torch.equal(fused, base + got.to(base.dtype)):
+            raise AssertionError(f"{name}: fused mode is not residual mode "
+                                 "+ cast + add bit for bit")
+        if bool(null.any()) and not torch.equal(fused[null], base[null]):
+            raise AssertionError(f"{name}: fused mode changed null rows")
+        if not torch.equal(kh.segmented_lora_add_(base.clone(), x, a, b,
+                                                  ids), fused):
+            raise AssertionError(f"{name}: two fused calls differ")
+        bf16 = base.dtype == torch.bfloat16
+        err_f = _fused_check(name + " fused", fused,
+                             kh.lora_add_plain(base, x, a, b, ids), want,
+                             bf16)
         xf, ag, bg = x.float(), a[ids.long()], b[ids.long()]
+        live = sum(i != 0 for i in id_list)
         adapters = {i for i in id_list if i != 0}
-        nbytes = (x.numel() * x.element_size() + B * 4
-                  + len(adapters) * (K + N) * H_RANK * 4 + B * S * N * 4)
-        record(kh.KERNEL, {"B": B, "S": S, "K": K, "N": N, "R": H_RANK,
-                           "slots": H_SLOTS, "ids": list(id_list),
-                           "x": x_dt}, err,
-               _time_ms(lambda: kh.segmented_lora(x, a, b, ids)),
+        common = (live * S * K * x.element_size() + B * 4
+                  + len(adapters) * (K + N) * H_RANK * 4)
+        flops = 2 * live * S * (K + N) * H_RANK
+        shape = {"B": B, "S": S, "K": K, "N": N, "R": H_RANK,
+                 "slots": H_SLOTS, "ids": list(id_list), "x": x_dt,
+                 "plan": kh.plan(B, S, K, N, H_RANK)}
+        decode = (B, S, K, N) == (8, 1, 2048, 2048)
+        chunk = (B, S, K, N) == (1, 512, 2048, 2048)
+        run = lambda: kh.segmented_lora(x, a, b, ids)  # noqa: E731
+        lib = lambda: torch.bmm(torch.bmm(xf, ag), bg)  # noqa: E731
+        ms, per, names = _launches_a_call(torch, name, run, "lora_kernel")
+        record(kh.KERNEL, {**shape, "mode": "residual"}, err, _time_ms(run),
                _time_ms(lambda: kh.lora_matmul_plain(x, a, b, ids)),
-               _time_ms(lambda: torch.bmm(torch.bmm(xf, ag), bg)),
-               _bound(nbytes, 2 * B * S * (K + N) * H_RANK),
-               main=(B, S, K, N) == (8, 1, 2048, 2048)
-               or (B, S, K, N) == (1, 512, 2048, 2048),
-               variant="chunk" if S == 512 else None,
+               _time_ms(lib), _bound(common + B * S * N * 4, flops),
+               main=decode or chunk,
+               variant="residual" if decode else "residual_chunk",
                library="torch.bmm twice over a[ids], b[ids] gathered "
                        "outside the timing",
                extra={"null_rows_max_abs": null_max,
                       "tolerance": {"atol": LORA_ATOL, "rtol": LORA_RTOL},
-                      "device_ms": _device_ms(
-                          torch, lambda: kh.segmented_lora(x, a, b, ids)),
-                      "library_device_ms": _device_ms(
-                          torch, lambda: torch.bmm(torch.bmm(xf, ag), bg))})
-        del a, b, x, xf, ag, bg, got, want
+                      "device_ms": ms, "device_kernels": names,
+                      "device_events_per_call": per,
+                      "library_device_ms": _device_ms(torch, lib)})
+        work = base.clone()
+        run_f = lambda: kh.segmented_lora_add_(  # noqa: E731
+            work, x, a, b, ids)
+        lib_f = lambda: base + lib().to(base.dtype)  # noqa: E731
+        ms_f, per_f, names_f = _launches_a_call(torch, name + " fused",
+                                                run_f, "lora_kernel")
+        extra = {"fused_equals_residual_cast_add": True,
+                 "null_rows_equal_base": True,
+                 "tolerance": {"atol": LORA_ATOL, "rtol": LORA_RTOL,
+                               "bf16_steps": 2.0 ** -7 if bf16 else 0.0},
+                 "device_ms": ms_f, "device_kernels": names_f,
+                 "device_events_per_call": per_f,
+                 "library_device_ms": _device_ms(torch, lib_f)}
+        if decode:
+            extra.update(_seam_check(torch, llama, x, a, b, ids, K, N,
+                                     randn))
+        record(kh.KERNEL, {**shape, "mode": "fused"}, err_f, _time_ms(run_f),
+               _time_ms(lambda: kh.lora_add_plain(base, x, a, b, ids)),
+               _time_ms(lib_f),
+               _bound(common + 2 * live * S * N * base.element_size(),
+                      flops),
+               main=decode or chunk, variant="chunk" if chunk else None,
+               library="torch.bmm twice over a[ids], b[ids] gathered "
+                       "outside the timing, then the cast and the add",
+               extra=extra)
+        del a, b, x, xf, ag, bg, got, want, base, fused, work
     torch.cuda.empty_cache()
+
+
+def _seam_check(torch, llama, x, a, b, ids, K, N, randn) -> dict:
+    """The model's seam on the card: ``llama.matmul`` over an adapter leaf
+    on a bf16 base weight is the base product + H added in place, bit for
+    bit, and two device kernels a call (no cast, no add)."""
+    from picotron_tpu_torch.ops.kernels import lora_matmul as kh
+
+    w = randn(K, N) * 0.02
+    leaf = {"w": w, "a": a, "b": b, "ids": ids}
+    got = llama.matmul(x, leaf)
+    want = (x @ w) + kh.segmented_lora(x, a, b, ids).to(x.dtype)
+    if not torch.equal(got, want):
+        raise AssertionError("the seam is not base + H's residual cast and "
+                             "added, bit for bit")
+    ms, per, names = _launches_a_call(
+        torch, "llama.matmul over an adapter leaf",
+        lambda: llama.matmul(x, leaf), "lora_kernel", per_call=2)
+    return {"seam_device_ms": ms, "seam_events_per_call": per,
+            "seam_kernels": names}
 
 
 def _fwd_bwd_less_fwd_ms(torch, fwd, inputs, grad_out) -> float:
@@ -1108,6 +1297,7 @@ def _profile(torch, run, path: str) -> dict:
     print(json.dumps({"profile": {
         "path": path, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall * 1e3),
+        "device_kernels": sum(calls.values()),
         "top": [{"name": name[:90], "calls": calls[name],
                  "device_ms": dev_ms[name]} for name in top],
         # kernel C's launches (each a split walk with its merge folded
@@ -1689,6 +1879,7 @@ def _tenant_serve_phase(torch, np, card, path_kernels, all_kernels) -> dict:
     lora_ms = sum(ms for name, ms in prof.items() if "lora_" in name)
     print(json.dumps({"profile_lora_matmul": {
         "path": "serve_tenants", "device_ms": lora_ms,
+        "kernels": sorted(name[:90] for name in prof if "lora_" in name),
         "share_of_device_time": lora_ms / sum(prof.values()),
         "seconds": time.perf_counter() - t_prof}}), flush=True)
     del engine, params, batcher, results, pack
@@ -1881,6 +2072,8 @@ def main() -> int:
             print("  ptxas: " + line, flush=True)
     print(json.dumps({"sass_flash_decode": _sass_check(build.build())}),
           flush=True)
+    print(json.dumps({"sass_quant_matmul": _sass_quant_check(
+        build.build())}), flush=True)
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1940,7 +2133,8 @@ def main() -> int:
                 **{key: records[k.name].get(key) for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape", *DEVICE_KEYS, "lse", "d128",
-                    "chunk")}}
+                    "chunk", "residual", "residual_chunk", "prefill",
+                    "lm_head")}}
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

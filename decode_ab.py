@@ -1,4 +1,5 @@
-"""Device time of kernel C (flash decode) in its five variants, for two
+"""Device time of kernel C (flash decode) in its five variants, of kernel G
+(the int8-weight matmul) and of the model's LoRA seam (kernel H), for two
 trees in one run on one CUDA card.
 
     python3 decode_ab.py --root OLD --root NEW
@@ -14,13 +15,23 @@ fixed seed, at ``chip_smoke.py`` phase 2's main shapes:
   the paged variants at head_dim 64 and 128 over a 2048-key window,
   C-int8 at 128 over 4096;
 - chunk (S = 512): C over 1536 keys at head_dim 64 and 128, C-int8 over
-  1024 at 128, the paged variants over 812 (300 cached) at 64.
+  1024 at 128, the paged variants over 812 (300 cached) at 64;
+- G through ``quant_matmul_2d`` at M 8 on Llama-2-7B's projections
+  (K x N 4096 x 4096, 4096 x 11008, 11008 x 4096) and its head (4096 x
+  32000), and at M 512 on 4096 x 11008;
+- H through each tree's own ``models.llama.matmul`` over an adapter leaf
+  (a bf16 base weight, the chip smoke's rank-16 pack of 8 slots with
+  adapters of rank 16, 8 and 4, null rows among the 8 decode rows): the
+  interface both trees share, so a row is the base product, H and
+  whatever the seam adds around it; at SmolLM-1.7B's projections at
+  decode and at a 512-row chunk, and Llama-2-7B's at decode.
 
 A row's time is the device time of one wrapper call, every kernel it
 launches summed from a torch.profiler trace of 20 calls (the median of
 three traces that lost no event), so a wrapper's host cost does not
-hide its kernels. Prints one JSON line per run, then one summary line with
-each row's median per tree and NEW / OLD.
+hide its kernels. Prints one JSON line per run (with the seam rows' device
+kernels a call), then one summary line with each row's median per tree
+and NEW / OLD.
 """
 
 from __future__ import annotations
@@ -36,10 +47,14 @@ ITERS = 20  # wrapper calls a trace
 TRACES = 3  # complete traces a row
 
 
-def _device_ms(torch, fn) -> float:
+EVENTS = {}  # row -> device kernels a call, from its last complete trace
+
+
+def _device_ms(torch, fn, row=None) -> float:
     """The median over ``TRACES`` profiler traces of ``ITERS`` calls of the
     device time of one call; a trace that lost an event (its count is no
-    multiple of the calls) is taken again."""
+    multiple of the calls) is taken again. With ``row``, the device kernels
+    a call go to ``EVENTS[row]``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -54,6 +69,8 @@ def _device_ms(torch, fn) -> float:
                   if str(e.device_type()).endswith("CUDA")]
         if events and len(events) % ITERS == 0:
             times.append(sum(e.duration_ns() for e in events) / 1e6 / ITERS)
+            if row is not None:
+                EVENTS[row] = len(events) // ITERS
             if len(times) == TRACES:
                 return statistics.median(times)
     raise RuntimeError("no complete profiler trace")
@@ -125,7 +142,39 @@ def _child(root: str) -> None:
             torch, lambda: kc.flash_decode_attention(
                 q, k, v, L, sc, ks, vs, block_tables=bt, k_quant=kq,
                 v_quant=vq, page_quant=pq))
-    print(json.dumps({"root": root, "device_ms": rows}), flush=True)
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.ops.kernels import quant_matmul as kg
+    from picotron_tpu_torch.ops.quant_matmul import quantize_weight
+
+    for M, K, N in ((8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
+                    (8, 4096, 32000), (512, 4096, 11008)):
+        x = randn(M, K)
+        w = quantize_weight(randn(K, N).float() * 0.02)
+        rows[f"G M{M} K{K} N{N}"] = _device_ms(
+            torch, lambda: kg.quant_matmul_2d(x, w["q"], w["s"]))
+        del x, w
+    slots, rank = 8, 16
+    ids8 = torch.tensor([0, 1, 2, 3, 1, 0, 3, 2], dtype=torch.int32,
+                        device=dev)
+    for B, S, K, N in ((8, 1, 2048, 2048), (8, 1, 2048, 8192),
+                       (8, 1, 8192, 2048), (1, 512, 2048, 2048),
+                       (8, 1, 4096, 4096), (8, 1, 4096, 11008),
+                       (8, 1, 11008, 4096)):
+        a = torch.zeros(slots, K, rank, device=dev)
+        b = torch.zeros(slots, rank, N, device=dev)
+        for slot, r in ((1, 16), (2, 8), (3, 4)):
+            a[slot, :, :r] = 0.05 * torch.randn((K, r), generator=gen,
+                                                device=dev)
+            b[slot, :r] = 0.05 * torch.randn((r, N), generator=gen,
+                                             device=dev)
+        leaf = {"w": randn(K, N) * 0.02, "a": a, "b": b,
+                "ids": ids8[:B] if B == 8 else ids8[1:1 + B]}
+        x = randn(B, S, K)
+        row = f"seam B{B} S{S} K{K} N{N}"
+        rows[row] = _device_ms(torch, lambda: llama.matmul(x, leaf), row)
+        del a, b, leaf, x
+    print(json.dumps({"root": root, "device_ms": rows,
+                      "kernels_per_call": EVENTS}), flush=True)
 
 
 def main(argv=None) -> int:

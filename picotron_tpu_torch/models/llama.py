@@ -193,13 +193,13 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     the dense matmul; a quantized ``{"q": int8, "s": fp32}`` pair runs
     ``quant_matmul`` (kernel G on the card), whose output follows
     ``x.dtype``; an adapter leaf ``{"w", "a", "b", "ids"}`` recurses on
-    its base ``w`` and adds each row's fp32 LoRA residual (kernel H on
-    the card), cast to the base output's dtype, as the JAX package adds
-    it."""
+    its base ``w`` and adds each row's fp32 LoRA residual, cast to the
+    base output's dtype, as the JAX package adds it: into the fresh base
+    product in place (``lora_matmul_add_``; on the card one launch of
+    kernel H, no cast or add kernel)."""
     if lmm.is_lora_weight(w):
-        base = matmul(x, w["w"])
-        return base + lmm.lora_matmul(x, w["a"], w["b"],
-                                      w["ids"]).to(base.dtype)
+        return lmm.lora_matmul_add_(matmul(x, w["w"]), x, w["a"], w["b"],
+                                    w["ids"])
     if qmm.is_quant_weight(w):
         return qmm.quant_matmul(x, w["q"], w["s"])
     return x @ w

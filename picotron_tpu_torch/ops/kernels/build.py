@@ -46,11 +46,11 @@ SIGNATURES = {
     "picotron_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _P],
     "picotron_flash_decode": [_P] * 7 + [_I] * 7 + [_F, _P],
     "picotron_flash_decode_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "picotron_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "picotron_quant_matmul": [_P] * 6 + [_I] * 5 + [_P],
     "picotron_flash_decode_paged": [_P] * 8 + [_I] * 8 + [_F, _P],
     "picotron_flash_decode_paged_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
     "picotron_flash_decode_mixed": [_P] * 13 + [_I] * 8 + [_F, _P],
-    "picotron_lora_matmul": [_P] * 6 + [_I] * 8 + [_P],
+    "picotron_lora_matmul": [_P] * 5 + [_I] * 10 + [_P],
 }
 
 

@@ -10,7 +10,8 @@ an fp32 residual
 
     residual[b] = (x[b] @ a[ids[b]]) @ b[ids[b]]
 
-onto the base output at ``models/llama.matmul``. Slot 0 of every pack is
+onto the base output at ``models/llama.matmul`` (``lora_matmul_add_``:
+on the card one launch of H, which adds it in place). Slot 0 of every pack is
 the reserved null adapter (A = B = 0): base-only rows ride the same
 dispatch and their residual is exactly zero. An engine with no pack never
 builds adapter leaves, so its paths run exactly as before.
@@ -28,6 +29,7 @@ import torch
 from picotron_tpu_torch.ops.kernels.lora_matmul import (  # noqa: F401
     lora_matmul_plain,
     segmented_lora,
+    segmented_lora_add_,
 )
 
 # Packs store fp32: the residual accumulates in fp32 end to end, and
@@ -46,15 +48,9 @@ def is_lora_weight(leaf) -> bool:
     return isinstance(leaf, dict) and set(leaf) == {"w", "a", "b", "ids"}
 
 
-def lora_matmul(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                ids) -> torch.Tensor:
-    """Per-row adapter residual ``(x[b] @ a[ids[b]]) @ b[ids[b]]``.
-
-    x: [B, S, in] activations (bf16 or fp32); a: [T, in, r] fp32 stacked
-    down-projections; b: [T, r, out] fp32 stacked up-projections; ids:
-    [B] adapter slots (0 = the null adapter: an exactly zero residual),
-    a tensor on x's device or a host sequence. Returns [B, S, out] fp32.
-    """
+def _operands(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, ids):
+    """The JAX entry's checks, with its messages; ids as int32 on x's
+    device (a tensor there already, or a host sequence)."""
     if x.dim() != 3:
         raise ValueError(
             f"lora_matmul expects x [B, S, in]; got {tuple(x.shape)}")
@@ -68,4 +64,29 @@ def lora_matmul(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             x.device)
     elif ids.dtype != torch.int32:
         ids = ids.to(torch.int32)
+    return ids
+
+
+def lora_matmul(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                ids) -> torch.Tensor:
+    """Per-row adapter residual ``(x[b] @ a[ids[b]]) @ b[ids[b]]``.
+
+    x: [B, S, in] activations (bf16 or fp32); a: [T, in, r] fp32 stacked
+    down-projections; b: [T, r, out] fp32 stacked up-projections; ids:
+    [B] adapter slots (0 = the null adapter: an exactly zero residual),
+    a tensor on x's device or a host sequence. Returns [B, S, out] fp32.
+    """
+    ids = _operands(x, a, b, ids)
     return segmented_lora(x.contiguous(), a, b, ids)
+
+
+def lora_matmul_add_(base: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, ids) -> torch.Tensor:
+    """``base += lora_matmul(x, a, b, ids).to(base.dtype)`` in place, and
+    ``base`` returned: the seam's form. ``base`` is the base product
+    [B, S, out] (bf16 or fp32); rows of the null adapter are left as they
+    are. On the card one launch of H and no allocation; on the CPU the
+    plain version, the same values as ``base + residual.to(base.dtype)``.
+    """
+    ids = _operands(x, a, b, ids)
+    return segmented_lora_add_(base, x.contiguous(), a, b, ids)

@@ -1,5 +1,5 @@
-"""Decode rate of the port's two contiguous serving paths, for two trees in
-one run on one CUDA card.
+"""Decode rate and TTFT of three of the port's serving paths, for two trees
+in one run on one CUDA card.
 
     python3 serve_ab.py --root OLD --root NEW
 
@@ -7,19 +7,23 @@ Each ``--root`` is a checkout of the repo (its ``picotron_tpu_torch`` and
 ``chip_smoke.py``). The trees run in the order OLD, NEW, NEW, OLD, each
 run in a process of its own with that root first on ``sys.path`` (its
 kernels built from its own sources), so a drift of the card or the host
-over the run falls on both trees alike. Each run serves
-``chip_smoke.py``'s 8 requests (the tree's own ``_requests``) twice after
-a warm-up on two paths:
+over the run falls on both trees alike. Each run serves, twice after a
+warm-up, on each path:
 
-- ``serve``: SmolLM-1.7B (config #2's model, bf16) on the contiguous bf16
-  cache, ``attend_impl="flash"``;
-- ``serve_int8``: Llama-2-7B (config #4's model) with int8 weights and
-  int8 KV cache.
+- ``serve``: ``chip_smoke.py``'s 8 requests (the tree's own ``_requests``)
+  on SmolLM-1.7B (config #2's model, bf16) on the contiguous bf16 cache,
+  ``attend_impl="flash"``;
+- ``serve_tenants``: its 10 requests of three LoRA tenants and the base
+  model in one batch (the tree's own ``_tenancy_config`` and
+  ``_tenant_requests``) on the same model over paged bf16 pages;
+- ``serve_int8``: the 8 requests on Llama-2-7B (config #4's model) with
+  int8 weights and int8 KV cache.
 
 Random weights from seed 0, 8 slots, the configs' decode block and chunk.
 Prints one JSON line per path and run (decode tokens/s as
 ``chip_smoke.py`` computes it, TTFT p50 and max, wall seconds), then one
-summary line with each tree's median decode rate per path.
+summary line with each tree's median decode rate, TTFT p50 and TTFT max
+per path.
 """
 
 from __future__ import annotations
@@ -47,21 +51,37 @@ def _child(root: str) -> None:
     from picotron_tpu_torch.inference.engine import InferenceEngine
     from picotron_tpu_torch.models import llama
 
+    from picotron_tpu_torch.inference import tenancy
+
     for path, config, int8 in (("serve", cs.CONFIG, False),
+                               ("serve_tenants", None, False),
                                ("serve_int8", cs.CONFIG_7B, True)):
-        cfg = Config.from_json(config)
-        if int8:
-            cfg.inference.weight_dtype = "int8"
-            cfg.inference.kv_cache_dtype = "int8"
-        engine = InferenceEngine(cfg, "cuda", slots=8, attend_impl="flash")
+        registry = None
+        if path == "serve_tenants":
+            cfg = cs._tenancy_config()
+            pack, registry = tenancy.build_tenancy(cfg)
+            engine = InferenceEngine(cfg, "cuda", slots=8, adapters=pack)
+        else:
+            cfg = Config.from_json(config)
+            if int8:
+                cfg.inference.weight_dtype = "int8"
+                cfg.inference.kv_cache_dtype = "int8"
+            engine = InferenceEngine(cfg, "cuda", slots=8,
+                                     attend_impl="flash")
         params = llama.init_params(engine.cfg.model, seed=cs.SEED,
                                    device=engine.device)
         if int8:
             params = llama.quantize_params(params)
+        if registry:
+            pack.device_leaves(engine.device)
+        warm = dict(tenant="acme", adapter_slot=1) if registry else {}
         ContinuousBatcher(engine, params, seed=cs.SEED).run(
-            [Request("warm", list(range(1, 25)), max_new_tokens=2)])
+            [Request("warm", list(range(1, 25)), max_new_tokens=2, **warm)])
         for rep in range(REPEATS):
-            requests = cs._requests(np, cfg.model.vocab_size, f"r{rep}_")
+            requests = (cs._tenant_requests(np, cfg.model.vocab_size,
+                                            f"r{rep}_", registry)
+                        if registry else
+                        cs._requests(np, cfg.model.vocab_size, f"r{rep}_"))
             batcher = ContinuousBatcher(engine, params, seed=cs.SEED)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -101,12 +121,16 @@ def main(argv=None) -> int:
             if line.startswith("{"):
                 print(line, flush=True)
                 rec = json.loads(line)
-                rates.setdefault(rec["path"], {}).setdefault(
-                    "old" if root == old else "new", []).append(
-                        rec["decode_tokens_per_s"])
-    print(json.dumps({"median_decode_tokens_per_s": {
+                tree = "old" if root == old else "new"
+                for key in ("decode_tokens_per_s", "ttft_p50_s",
+                            "ttft_max_s"):
+                    rates.setdefault(key, {}).setdefault(
+                        rec["path"], {}).setdefault(tree, []).append(
+                            rec[key])
+    print(json.dumps({"median_" + key: {
         path: {tree: statistics.median(v) for tree, v in by.items()}
-        for path, by in rates.items()}, "runs": rates}), flush=True)
+        for path, by in paths.items()} for key, paths in rates.items()}
+        | {"runs": rates}), flush=True)
     return 0
 
 

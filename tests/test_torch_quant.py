@@ -10,6 +10,11 @@ Inputs are made from a numpy seed and go through both packages:
 - G's plain version against ``quant_matmul_pallas(..., interpret=True)``:
   rtol 1e-5 in fp32 (the two sum the same exact products in different
   orders), within 2^-7 in bf16 (one bf16 rounding step of the output);
+- G on a tensor that reports a CUDA device raises without the kernel
+  library and never takes the plain version; G's plan (split-K GEMV for
+  M <= 16, wgmma above) from the shapes alone at the chip smoke's
+  shapes; the kernel's mask-and-subtract int8 -> bf16 route, exact on
+  every byte (a numpy model);
 - C-int8's plain version against the Pallas ``flash_decode_attention``
   with ``k_scale``/``v_scale`` in interpret mode at decode,
   verify-shaped and chunk shapes, MHA and GQA: atol 1e-5 in fp32;
@@ -23,7 +28,9 @@ Inputs are made from a numpy seed and go through both packages:
   --kv-cache-dtype int8`` and ``--check-weight-parity``.
 """
 
+import importlib.util
 import json
+import os
 import re
 
 import jax
@@ -51,6 +58,8 @@ from picotron_tpu_torch.models import llama
 from picotron_tpu_torch.ops import quant_matmul as qmm
 from picotron_tpu_torch.ops.kernels import decode_attention as kc
 from picotron_tpu_torch.ops.kernels import quant_matmul as kg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MAX_LEN = 64
 CHUNK = 16
@@ -177,6 +186,107 @@ def test_quant_matmul_validates_and_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         kc.flash_decode_attention(q, kv, kv, torch.empty(
             1, device="meta", dtype=torch.int32), 0.125, sc, sc)
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes a wrapper's CUDA
+    path on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_quant_matmul_on_a_cuda_tensor_raises_without_the_kernel(
+        monkeypatch):
+    """A CUDA tensor never reaches the plain version: with the kernel
+    library unavailable the call raises and counts no launch."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def no_library():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(kg, "quant_matmul_plain", boom)
+    monkeypatch.setattr(kg.build, "library", no_library)
+    x = torch.zeros(8, 64, dtype=torch.bfloat16).as_subclass(_CudaLooking)
+    q = torch.zeros(64, 32, dtype=torch.int8).as_subclass(_CudaLooking)
+    s = torch.zeros(32).as_subclass(_CudaLooking)
+    before = kg.KERNEL.launches
+    # the output is allocated on the device first, which a torch without
+    # CUDA refuses; either way the call raises
+    with pytest.raises((RuntimeError, AssertionError)) as e:
+        kg.quant_matmul_2d(x, q, s)
+    assert "plain version" not in str(e.value)
+    assert kg.KERNEL.launches == before
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quant_plan_is_a_function_of_the_shapes():
+    """G's plan, for every projection shape of the chip smoke's G rows at
+    M of 1, 8, 16, 17 and 512, and the ragged shapes: M <= 16 takes the
+    split-K variant with 1 to 8 splits of K, no split without a 16-row
+    slab for each of its 8 warps, and about two blocks an SM; M > 16 the
+    wgmma variant on 128 x 128 tiles, unsplit. The same shapes give
+    the same plan."""
+    cs = _chip_smoke()
+    shapes = ([(M, K, N) for K, N in cs.G_SHAPES for M in (1, 8, 16, 17, 512)]
+              + [(37, 4100, 1000), (5, 4100, 1000), (3, 45, 33)])
+    for M, K, N in shapes:
+        p = kg.plan(M, K, N)
+        assert p == kg.plan(M, K, N)
+        assert p["variant"] in kg.VARIANTS
+        if M <= 16:
+            assert p["variant"] == "splitk"
+            assert 1 <= p["splits"] <= kg.MAX_SPLITS
+            assert p["tiles"] == -(-N // 128)
+            assert p["splits"] == 1 or p["splits"] * 8 <= -(-K // 16)
+            assert p["tiles"] * p["splits"] <= 2 * kg.SMS
+        else:
+            assert p["variant"] == "wgmma" and p["splits"] == 1
+            assert p["tiles"] == -(-M // 128) * -(-N // 128)
+    assert kg.plan(8, 4096, 11008)["splits"] == 3
+    assert kg.plan(8, 4096, 4096)["splits"] == 8
+    assert kg.plan(8, 4096, 32000)["splits"] == 1
+
+
+def _bf16_bits(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bit patterns -> their fp32 values."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def test_int8_to_bf16_route_of_the_kernel_is_exact():
+    """The kernel's conversion without conversion units, modelled in numpy
+    over every pair of bytes a 32-bit mask sees at once (bytes 0 and 2 of
+    a word; bytes 1 and 3 after a shift by 8): with l a byte's low 7 bits
+    and s its sign bit, the masks give the bf16 values 128 + l and
+    128 * 2^s, whose difference is the byte's value, exactly in bf16."""
+    v = np.arange(-128, 128, dtype=np.int32)
+    lo, hi = np.meshgrid(v, v, indexing="ij")
+    for shift in (0, 8):
+        word = (((lo & 0xFF) << shift) | ((hi & 0xFF) << (16 + shift))
+                ).astype(np.uint32)
+        w = word >> np.uint32(shift)
+        L = (w & np.uint32(0x007F007F)) | np.uint32(0x43004300)
+        T = (w & np.uint32(0x00800080)) | np.uint32(0x43004300)
+        for half, want in ((0, lo), (16, hi)):
+            a = _bf16_bits((L >> np.uint32(half)) & np.uint32(0xFFFF))
+            b = _bf16_bits((T >> np.uint32(half)) & np.uint32(0xFFFF))
+            d = a - b  # exact in fp32, and a bf16 value: one rounding is none
+            np.testing.assert_array_equal(d, want.astype(np.float32))
+            bf = torch.from_numpy(d.reshape(-1)).to(torch.bfloat16).float()
+            np.testing.assert_array_equal(bf.numpy(), d.reshape(-1))
 
 
 # --------------------------------------------------------------------------- #

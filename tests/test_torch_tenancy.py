@@ -5,6 +5,12 @@ CPU.
   tensors) against the Pallas kernel in interpret mode and the XLA
   fallback, over ``tests/test_tenancy.py``'s shapes, fp32 and bf16 x,
   with null rows exactly 0, and the dispatcher's validation messages;
+- H's fused entry (the residual added into the base output in place):
+  bit for bit ``base + residual.to(base.dtype)`` in fp32 and bf16, null
+  rows untouched, its refusals and messages, never a plain version for a
+  tensor on another device than the CPU, and its plan from the shapes
+  alone; the seam ``llama.matmul`` over an adapter leaf on a dense and an
+  int8 base against JAX's ``matmul`` (fp32, 1e-5);
 - the host side: ``AdapterPack`` (capacity, version, null slot,
   ``random_leaves`` bit-equal to JAX's, ``.npz`` leaves), ``Tenant``,
   ``TenantRegistry`` and manifests (same outcomes and messages),
@@ -60,6 +66,10 @@ from picotron_tpu_torch.inference.batcher import (
 from picotron_tpu_torch.inference.engine import InferenceEngine
 from picotron_tpu_torch.models import llama
 from picotron_tpu_torch.ops import lora_matmul as lm
+from picotron_tpu_torch.ops.kernels import lora_matmul as kh
+from picotron_tpu_torch.ops.quant_matmul import (
+    quantize_weight_host as qmm_host,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_LEN = 64
@@ -138,6 +148,189 @@ def test_lora_matmul_validation_messages_match_jax():
         got = _outcome(lambda: lm.lora_matmul(
             torch.zeros(xs), torch.zeros(as_), torch.zeros(bs), [0, 0]))
         assert want[0] == "ValueError" and got == want
+
+
+# --------------------------------------------------------------------------- #
+# kernel H's fused entry (the residual added into the base output) and the
+# model seam that takes it
+# --------------------------------------------------------------------------- #
+
+
+def _lora_operands(rng, B, S, K, N, r, T=4):
+    x = rng.normal(size=(B, S, K)).astype(np.float32)
+    a = rng.normal(size=(T, K, r)).astype(np.float32)
+    b = rng.normal(size=(T, r, N)).astype(np.float32)
+    a[0] = 0.0  # slot 0 = the null adapter
+    b[0] = 0.0
+    return x, a, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,K,N,r,ids", [(4, 1, 32, 48, 8, (0, 2, 1, 0)),
+                                           (3, 5, 64, 40, 4, (3, 0, 2)),
+                                           (1, 16, 48, 64, 16, (1,))])
+def test_fused_lora_add_is_base_plus_cast_residual(B, S, K, N, r, ids,
+                                                   dtype):
+    """The fused entry (on the CPU: its plain version, written into base)
+    equals ``base + lora_matmul_plain(...).to(base.dtype)`` bit for bit,
+    in fp32 and bf16, returns base itself, and leaves null rows equal to
+    the base under ``torch.equal``."""
+    rng = np.random.default_rng(B + S)
+    x, a, b = _lora_operands(rng, B, S, K, N, r)
+    dt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(dt)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    it = torch.tensor(ids, dtype=torch.int32)
+    base = torch.from_numpy(rng.normal(size=(B, S, N)).astype(
+        np.float32)).to(dt)
+    want = base + kh.lora_matmul_plain(xt, at, bt, it).to(dt)
+    assert torch.equal(kh.lora_add_plain(base, xt, at, bt, it), want)
+    work = base.clone()
+    got = lm.lora_matmul_add_(work, xt, at, bt, list(ids))
+    assert got is work and got.dtype == dt
+    assert torch.equal(got, want)
+    null = it == 0
+    if bool(null.any()):
+        assert torch.equal(got[null], base[null])
+    work = base.clone()
+    assert torch.equal(kh.segmented_lora_add_(work, xt, at, bt, it), want)
+
+
+@pytest.mark.parametrize("weights", ["dense", "int8"])
+@pytest.mark.parametrize("S", [1, 5])
+def test_seam_matmul_over_an_adapter_leaf_matches_jax(weights, S):
+    """``llama.matmul`` over an adapter leaf (a dense base, and the int8
+    pair of kernel G's plain version) against the JAX ``matmul`` on the
+    same numpy inputs, fp32: rtol and atol 1e-5 (the same products
+    summed in other orders), null rows equal to the base product alone."""
+    rng = np.random.default_rng(7 + S)
+    B, K, N, r = 3, 64, 48, 4
+    x, a, b = _lora_operands(rng, B, S, K, N, r)
+    ids = np.array([2, 0, 3], np.int32)
+    w = (rng.normal(size=(K, N)) * 0.1).astype(np.float32)
+    if weights == "int8":
+        qw = qmm_host(w)
+        base_w, jbase_w = ({k: torch.from_numpy(v) for k, v in qw.items()},
+                           {k: jnp.asarray(v) for k, v in qw.items()})
+    else:
+        base_w, jbase_w = torch.from_numpy(w), jnp.asarray(w)
+    leaf = {"w": base_w, "a": torch.from_numpy(a), "b": torch.from_numpy(b),
+            "ids": torch.from_numpy(ids)}
+    jleaf = {"w": jbase_w, "a": jnp.asarray(a), "b": jnp.asarray(b),
+             "ids": jnp.asarray(ids)}
+    got = llama.matmul(torch.from_numpy(x), leaf)
+    want = np.asarray(jax_llama.matmul(jnp.asarray(x), jleaf))
+    assert got.shape == (B, S, N) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    base = llama.matmul(torch.from_numpy(x), base_w)
+    assert torch.equal(got[1], base[1])
+
+
+def test_fused_lora_add_refuses_a_bad_base():
+    """The fused entry's own messages: a base of another shape than
+    [B, S, N], of a dtype other than bf16 and fp32, or on another device
+    than x; x, a, b and ids keep the residual entry's checks."""
+    x, a, b = (torch.zeros(2, 3, 8), torch.zeros(4, 8, 2),
+               torch.zeros(4, 2, 6))
+    ids = torch.zeros(2, dtype=torch.int32)
+    cases = [
+        (torch.zeros(2, 3, 5), "lora_matmul base (2, 3, 5) is not the "
+                               "[B, S, N] (2, 3, 6) of x and b"),
+        (torch.zeros(2, 3, 6, dtype=torch.int32),
+         "lora_matmul base must be bf16 or fp32; got torch.int32"),
+        (torch.zeros(2, 3, 6, dtype=torch.float16),
+         "lora_matmul base must be bf16 or fp32; got torch.float16"),
+        (torch.zeros(2, 3, 6, device="meta"),
+         "lora_matmul base lies on meta, x on cpu"),
+    ]
+    for base, msg in cases:
+        with pytest.raises(ValueError) as e:
+            kh.segmented_lora_add_(base, x, a, b, ids)
+        assert str(e.value) == msg
+    with pytest.raises(ValueError, match="lora_matmul shapes"):
+        kh.segmented_lora_add_(torch.zeros(2, 3, 6), x, a[:, :4], b, ids)
+    want = _outcome(lambda: lm.lora_matmul(torch.zeros(2, 8), a, b, [0, 0]))
+    assert want[0] == "ValueError"
+    assert _outcome(lambda: lm.lora_matmul_add_(
+        torch.zeros(2, 3, 6), torch.zeros(2, 8), a, b, [0, 0])) == want
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes a wrapper's CUDA
+    path on a machine without a card, up to the kernel library."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_lora_entries_launch_or_raise_and_never_fall_back(monkeypatch):
+    """A tensor that is not on the CPU launches kernel H or raises: with
+    the library unavailable both entries raise, neither plain version is
+    called and no launch is counted. On the CUDA path the fused entry
+    also refuses a base of another dtype than x or a strided one."""
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def no_library():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(kh, "lora_matmul_plain", boom)
+    monkeypatch.setattr(kh, "lora_add_plain", boom)
+    monkeypatch.setattr(kh.build, "library", no_library)
+
+    def cuda(t):
+        return t.as_subclass(_CudaLooking)
+
+    x = cuda(torch.zeros(2, 1, 8, dtype=torch.bfloat16))
+    a, b = cuda(torch.zeros(4, 8, 2)), cuda(torch.zeros(4, 2, 6))
+    ids = cuda(torch.zeros(2, dtype=torch.int32))
+    before = kh.KERNEL.launches
+    # the residual entry allocates its output on the device first, which
+    # a torch without CUDA refuses; either way it raises
+    with pytest.raises((RuntimeError, AssertionError)) as e:
+        kh.segmented_lora(x, a, b, ids)
+    assert "plain version" not in str(e.value)
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        kh.segmented_lora_add_(cuda(torch.zeros(2, 1, 6,
+                                                dtype=torch.bfloat16)),
+                               x, a, b, ids)
+    with pytest.raises(ValueError) as e:
+        kh.segmented_lora_add_(cuda(torch.zeros(2, 1, 6)), x, a, b, ids)
+    assert str(e.value) == ("lora_matmul kernel adds into a contiguous base "
+                            "of x's dtype torch.bfloat16; got torch.float32")
+    strided = cuda(torch.zeros(2, 1, 12, dtype=torch.bfloat16)[..., ::2])
+    with pytest.raises(ValueError) as e:
+        kh.segmented_lora_add_(strided, x, a, b, ids)
+    assert str(e.value).endswith("got torch.bfloat16, strided")
+    assert kh.KERNEL.launches == before
+
+
+def test_lora_plan_is_a_function_of_the_shapes():
+    """H's plan gives a variant, a row tile and a split count (the blocks
+    of one cluster: 8 at decode, 4 at a 512-row chunk, whose 32 row tiles
+    fill the card with 4 each) for every shape the chip smoke times and the
+    ragged ones, from the shapes alone: the same answer for the same
+    shapes, whatever the call before it."""
+    cs = _chip_smoke()
+    shapes = ([(8, 1, K, N) for K, N in cs.H_SMOL_SHAPES + cs.H_7B_SHAPES]
+              + [(1, 512, K, N) for K, N in cs.H_SMOL_SHAPES]
+              + [(3, 37, 1000, 1500), (4, 1, 32, 48), (3, 5, 64, 40),
+                 (2, 16, 48, 64)])
+    for B, S, K, N in shapes:
+        p = kh.plan(B, S, K, N, cs.H_RANK)
+        assert p == kh.plan(B, S, K, N, cs.H_RANK)
+        assert p["variant"] == ("decode" if S == 1 else "rows16")
+        assert p["rows"] == (1 if S == 1 else 16)
+        assert p["cluster"] in (1, 2, 4, 8)
+        if max(K, N) >= 2048:
+            assert p["cluster"] == (4 if S == 512 else kh.MAX_CLUSTER)
+    assert kh.plan(3, 37, 1000, 1500, 16)["cluster"] == 4
+    assert kh.plan(4, 1, 32, 48, 8)["cluster"] == 1
 
 
 # --------------------------------------------------------------------------- #
