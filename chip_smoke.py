@@ -31,13 +31,18 @@ Run from the root of a checkout. Phases, each of which must pass:
    at rows that see no key: those rows must come out exactly 0. One JSON
    line per shape with the kernel's time, the plain version's, one
    library call's (a yardstick only; the port never calls it) and the
-   card's lower bound; C's rows, A's and H's also with the device time of
-   the kernel and of the library call, from a profiler trace.
+   card's lower bound; C's rows, A's, D's and H's also with the device
+   time of the kernel and of the library call, from a profiler trace. A
+   (RMSNorm) at ``A_SHAPES`` and D (its backward) at ``D_SHAPES``: the
+   main paths' shapes, an H 4096 shape and a ragged width (H 1000), each
+   one device kernel a call, D's dx and dw the same bits when called
+   twice, each row with its launch plan.
    The backward kernels' library yardstick is F.rms_norm and
    F.scaled_dot_product_attention under autograd, timed as forward +
-   backward less forward; G's is aten's int8-weight matmul (or cuBLAS on a
-   bf16 copy of the weight), and each G row also times ``torch.matmul`` on
-   a bf16 copy of the weight (what the tensor cores give the shape), reads
+   backward less forward (D's also on the device, from traces); G's is
+   aten's int8-weight matmul (or cuBLAS on a bf16 copy of the weight),
+   and each G row also times ``torch.matmul`` on a bf16 copy of the
+   weight (what the tensor cores give the shape), reads
    its kernel's device time from a trace (one kernel a call) and checks
    that two calls give the same bits (its split-K counters back at zero
    after the rows); C-int8's SDPA over a dequantized copy; C's
@@ -214,6 +219,17 @@ RTOL = ATOL = 2e-2  # kernel vs plain version in bf16 (see _check)
 PAGED_ATOL = 2e-3
 PAGED_RTOL = 1e-2
 PAGED_SLOT_REL_L2 = 1e-2
+# A's and D's (rows, H): A at decode (8 slots), a 512-row prefill chunk and
+# the training shape (seq 2048 x micro-batch 4) on SmolLM-1.7B, Llama-2-7B's
+# decode (H 4096), and a ragged width (H % 64 != 0); D at the training
+# shape, a ragged row count, an H 4096 shape and the ragged width. Beside
+# the main shapes (A at decode, D at training) the closing line keeps the
+# variants named here
+A_SHAPES = ((8, 2048), (512, 2048), (8192, 2048), (8, 4096), (37, 1000))
+A_VARIANTS = {(512, 2048): "prefill", (8192, 2048): "train",
+              (8, 4096): "h4096"}
+D_SHAPES = ((8192, 2048), (1000, 2048), (4096, 4096), (37, 1000))
+D_VARIANTS = {(4096, 4096): "h4096"}
 # G's (K, N) on the Llama-2-7B path: wq/wk/wv/wo, w_gate/w_up, w_down,
 # lm_head
 G_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
@@ -267,16 +283,18 @@ def _device_trace(torch, fn, iters: int = 10, per_call=None) -> tuple:
     of ``iters`` calls (no host time, so a call whose wrapper costs more on
     the host than its kernels take on the device is measured by its
     kernels): (milliseconds, device events per call, their names). A trace
-    now and then comes back without events, or short of one: a trace with
-    none, or (given ``per_call``) with another count than ``per_call`` a
-    call, is taken again, up to five times; the last one is returned
-    ((None, 0, []) if none held an event)."""
+    now and then comes back without events, or short of some (kernels
+    launched in thread-block clusters lose one in most traces and, now and
+    then, most of them): a trace with none, or (given ``per_call``) with
+    another count than ``per_call`` a call, is taken again, up to eight
+    times. A trace loses events but never adds one, so the trace with the
+    most events is returned ((None, 0, []) if none held an event)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     out = (None, 0, [])
-    for _ in range(5):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -284,11 +302,11 @@ def _device_trace(torch, fn, iters: int = 10, per_call=None) -> tuple:
         events = [e for e in prof.profiler.kineto_results.events()
                   if str(e.device_type()).endswith("CUDA")]
         ns = sum(e.duration_ns() for e in events)
-        if ns > 0:
+        if ns > 0 and len(events) / iters > out[1]:
             out = (ns / 1e6 / iters, len(events) / iters,
                    sorted({e.name()[:90] for e in events}))
-            if per_call is None or len(events) == per_call * iters:
-                return out
+        if ns > 0 and (per_call is None or len(events) == per_call * iters):
+            return out
     return out
 
 
@@ -445,7 +463,7 @@ def _check(name, got, want, mask=None, atol=ATOL, rtol=RTOL) -> float:
 # the host's cost of a call, which at decode is about that of the kernels);
 # G's second yardstick's (torch.matmul on a bf16 copy of the weight)
 DEVICE_KEYS = ("split_plan", "device_ms", "library_device_ms",
-               "bf16_matmul_device_ms")
+               "bf16_matmul_device_ms", "plan")
 
 
 def _c_extra(torch, kc, run, lib, q, k, block_tables=None) -> dict:
@@ -538,23 +556,27 @@ def _kernel_checks(torch, F) -> dict:
                 **{key: (extra or {})[key] for key in DEVICE_KEYS
                    if key in (extra or {})})
 
-    # A: RMSNorm over [rows, 2048] (decode: rows = slots; prefill: bucket)
-    H, eps = 2048, 1e-5
-    for rows in (8, 512):
+    # A: RMSNorm over [rows, H] at A_SHAPES, each one device kernel a call
+    eps = 1e-5
+    for rows, H in A_SHAPES:
         x, w = randn(rows, H), (1.0 + 0.1 * randn(H).float()).to(bf)
-        err = _check(f"rmsnorm rows={rows}", ka.rms_norm(x, w, eps),
-                     ka.rms_norm_plain(x, w, eps))
+        run = lambda: ka.rms_norm(x, w, eps)  # noqa: E731
+        name = f"rmsnorm rows={rows} H={H}"
+        err = _check(name, run(), ka.rms_norm_plain(x, w, eps))
         lib = ((lambda: F.rms_norm(x, (H,), w, eps))
                if hasattr(F, "rms_norm") else None)
-        record(ka.KERNEL, {"rows": rows, "H": H}, err,
-               _time_ms(lambda: ka.rms_norm(x, w, eps)),
+        ms, _, names = _launches_a_call(torch, name, run, "rmsnorm_fwd")
+        record(ka.KERNEL, {"rows": rows, "H": H}, err, _time_ms(run),
                _time_ms(lambda: ka.rms_norm_plain(x, w, eps)),
                _time_ms(lib) if lib else None,
-               _bound((2 * rows * H + H) * 2, 0.0), main=rows == 8,
-               extra={"device_ms": _device_ms(
-                          torch, lambda: ka.rms_norm(x, w, eps)),
+               _bound((2 * rows * H + H) * 2, 0.0),
+               main=(rows, H) == (8, 2048) or (rows, H) in A_VARIANTS,
+               variant=A_VARIANTS.get((rows, H)),
+               extra={"device_ms": ms,
                       "library_device_ms": (_device_ms(torch, lib)
-                                            if lib else None)})
+                                            if lib else None),
+                      "device_kernels": names,
+                      "plan": ka.plan_fwd(rows, H)})
 
     # B: causal prefill attention, [1, S, 32, D]; one GQA shape (g = 4),
     # one S that no 64-row tile divides (200); D = 64 (SmolLM) and D = 128
@@ -1129,9 +1151,9 @@ def _seam_check(torch, llama, x, a, b, ids, K, N, randn) -> dict:
             "seam_kernels": names}
 
 
-def _fwd_bwd_less_fwd_ms(torch, fwd, inputs, grad_out) -> float:
-    """A library call's backward time: forward + backward less forward,
-    under autograd, for ``inputs`` that require gradients."""
+def _fwd_bwd_calls(torch, fwd, inputs, grad_out) -> tuple:
+    """(forward + backward, forward alone) of a library call under
+    autograd, for ``inputs`` that require gradients."""
     def both():
         for t in inputs:
             t.grad = None
@@ -1141,7 +1163,21 @@ def _fwd_bwd_less_fwd_ms(torch, fwd, inputs, grad_out) -> float:
         with torch.no_grad():
             fwd()
 
+    return both, fwd_only
+
+
+def _fwd_bwd_less_fwd_ms(torch, fwd, inputs, grad_out) -> float:
+    """A library call's backward time: forward + backward less forward
+    (CUDA events around the calls)."""
+    both, fwd_only = _fwd_bwd_calls(torch, fwd, inputs, grad_out)
     return _time_ms(both) - _time_ms(fwd_only)
+
+
+def _fwd_bwd_less_fwd_device_ms(torch, fwd, inputs, grad_out) -> float:
+    """The same from profiler traces: the device time of forward +
+    backward less the forward's."""
+    both, fwd_only = _fwd_bwd_calls(torch, fwd, inputs, grad_out)
+    return _device_ms(torch, both) - _device_ms(torch, fwd_only)
 
 
 def _training_kernel_checks(torch, F, randn, record) -> None:
@@ -1151,25 +1187,40 @@ def _training_kernel_checks(torch, F, randn, record) -> None:
     from picotron_tpu_torch.ops.kernels import flash_attention as kb
     from picotron_tpu_torch.ops.kernels import rmsnorm as ka
 
-    # D: RMSNorm backward over [rows, 2048]; 8192 rows = seq 2048 x
-    # micro-batch 4, and one ragged row count
-    H, eps = 2048, 1e-5
-    for rows in (8192, 1000):
+    # D: RMSNorm backward at D_SHAPES, each one device kernel a call, the
+    # same bits when called twice
+    eps = 1e-5
+    for rows, H in D_SHAPES:
         x, dy = randn(rows, H), randn(rows, H)
         w = (1.0 + 0.1 * randn(H).float()).to(torch.bfloat16)
-        dx, dw = ka.rms_norm_bwd(x, w, dy, eps)
+        run = lambda: ka.rms_norm_bwd(x, w, dy, eps)  # noqa: E731
+        name = f"rmsnorm_bwd rows={rows} H={H}"
+        (dx, dw), (dx2, dw2) = run(), run()
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(f"{name}: two calls on the same inputs "
+                                 "differ")
         pdx, pdw = ka.rms_norm_bwd_plain(x, w, dy, eps)
-        err = max(_check(f"rmsnorm_bwd dx rows={rows}", dx, pdx),
-                  _check(f"rmsnorm_bwd dw rows={rows}", dw, pdw))
-        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        lib = (_fwd_bwd_less_fwd_ms(
-            torch, lambda: F.rms_norm(xl, (H,), wl, eps), (xl, wl), dy)
-               if hasattr(F, "rms_norm") else None)
-        record(ka.KERNEL_BWD, {"rows": rows, "H": H}, err,
-               _time_ms(lambda: ka.rms_norm_bwd(x, w, dy, eps)),
+        err = max(_check(f"{name} dx", dx, pdx),
+                  _check(f"{name} dw", dw, pdw))
+        ms, _, names = _launches_a_call(torch, name, run, "rmsnorm_bwd")
+        lib = lib_dev = None
+        if hasattr(F, "rms_norm"):
+            xl = x.clone().requires_grad_(True)
+            wl = w.clone().requires_grad_(True)
+            fwd = lambda: F.rms_norm(xl, (H,), wl, eps)  # noqa: E731
+            lib = _fwd_bwd_less_fwd_ms(torch, fwd, (xl, wl), dy)
+            lib_dev = _fwd_bwd_less_fwd_device_ms(torch, fwd, (xl, wl), dy)
+            del xl, wl
+        record(ka.KERNEL_BWD, {"rows": rows, "H": H}, err, _time_ms(run),
                _time_ms(lambda: ka.rms_norm_bwd_plain(x, w, dy, eps)),
                lib, _bound((3 * rows * H + 2 * H) * 2, 0.0),
-               main=rows == 8192)
+               main=(rows, H) == (8192, 2048) or (rows, H) in D_VARIANTS,
+               variant=D_VARIANTS.get((rows, H)),
+               extra={"device_ms": ms, "library_device_ms": lib_dev,
+                      "device_kernels": names,
+                      "plan": ka.plan_bwd(rows, H,
+                                          ka.sm_count(x.device.index))})
+        del x, dy, dx, dw, dx2, dw2, pdx, pdw
 
     # B with its LSE, E and F: [4, 2048, 32, 64] (the training shape), a
     # ragged S, one GQA shape (g = 4), and the GQA shape at head_dim 128
@@ -1271,9 +1322,9 @@ def _profile(torch, run, path: str) -> dict:
     """Phases 4 to 7: ``run`` (a main path's work once more) under
     torch.profiler. Prints one ``{"profile": ...}`` line: the wall time,
     the summed device time of every kernel (one stream, so kernels do not
-    overlap and the sum over the wall is the device's busy share), and the
-    kernels that took the most device time. Returns every kernel's device
-    milliseconds by name."""
+    overlap and the sum over the wall is the device's busy share), the
+    kernels that took the most device time, and C's, A's and D's kernels.
+    Returns every kernel's device milliseconds by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1301,11 +1352,12 @@ def _profile(torch, run, path: str) -> dict:
         "top": [{"name": name[:90], "calls": calls[name],
                  "device_ms": dev_ms[name]} for name in top],
         # kernel C's launches (each a split walk with its merge folded
-        # in), whatever their rank
-        "decode_attention": [{"name": name[:90], "calls": calls[name],
-                              "device_ms": dev_ms[name]}
-                             for name in sorted(dev_ms)
-                             if "flash_decode" in name]}}), flush=True)
+        # in) and A's and D's, whatever their rank
+        **{key: [{"name": name[:90], "calls": calls[name],
+                  "device_ms": dev_ms[name]}
+                 for name in sorted(dev_ms) if mark in name]
+           for key, mark in (("decode_attention", "flash_decode"),
+                             ("rmsnorm", "rmsnorm"))}}}), flush=True)
     merge = [name for name in dev_ms if "flash_decode_merge" in name]
     if merge:
         raise AssertionError(f"{path}: a separate merge kernel ran: {merge}")
@@ -2134,7 +2186,7 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape", *DEVICE_KEYS, "lse", "d128",
                     "chunk", "residual", "residual_chunk", "prefill",
-                    "lm_head")}}
+                    "lm_head", "train", "h4096")}}
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # every exported C function: name -> argtypes (each returns a cudaError_t
 # as int, 0 on success)
 SIGNATURES = {
-    "picotron_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _P],
-    "picotron_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "picotron_rmsnorm_fwd": [_P, _P, _P] + [_I] * 6 + [_F, _P],
+    "picotron_rmsnorm_bwd": [_P] * 6 + [_I] * 8 + [_F, _P],
     "picotron_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _F, _P],
     "picotron_flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _P],

@@ -1,7 +1,7 @@
-"""Decode rate and TTFT of three of the port's serving paths, for two trees
-in one run on one CUDA card.
+"""Decode rate and TTFT of three of the port's serving paths, and the
+training step time, for two trees in one run on one CUDA card.
 
-    python3 serve_ab.py --root OLD --root NEW
+    python3 serve_ab.py --root OLD --root NEW [--path train ...]
 
 Each ``--root`` is a checkout of the repo (its ``picotron_tpu_torch`` and
 ``chip_smoke.py``). The trees run in the order OLD, NEW, NEW, OLD, each
@@ -17,13 +17,17 @@ warm-up, on each path:
   model in one batch (the tree's own ``_tenancy_config`` and
   ``_tenant_requests``) on the same model over paged bf16 pages;
 - ``serve_int8``: the 8 requests on Llama-2-7B (config #4's model) with
-  int8 weights and int8 KV cache.
+  int8 weights and int8 KV cache;
+- ``train`` (only when asked for): ``chip_smoke.py``'s training phase
+  without its gate, CLI and profile: config #2's model and training
+  sections on one card (seq 2048 x micro-batch 4, remat, AdamW) over the
+  synthetic loader, its warm-up steps, then its timed steps.
 
 Random weights from seed 0, 8 slots, the configs' decode block and chunk.
-Prints one JSON line per path and run (decode tokens/s as
-``chip_smoke.py`` computes it, TTFT p50 and max, wall seconds), then one
-summary line with each tree's median decode rate, TTFT p50 and TTFT max
-per path.
+``--path`` picks paths (default: the three serving ones). Prints one JSON
+line per path and run (decode tokens/s as ``chip_smoke.py`` computes it,
+TTFT p50 and max, wall seconds; for ``train`` the median step time), then
+one summary line with each tree's medians per path.
 """
 
 from __future__ import annotations
@@ -37,10 +41,42 @@ import sys
 import time
 
 REPEATS = 2  # timed runs per path and process, after one warm-up
+SERVING = ("serve", "serve_tenants", "serve_int8")
+KEYS = ("decode_tokens_per_s", "ttft_p50_s", "ttft_max_s", "step_s")
 
 
-def _child(root: str) -> None:
-    """One process's runs, on the tree at ``root``."""
+def _train(root: str, torch, cs) -> None:
+    """The training path's timed steps, on the tree at ``root``."""
+    from picotron_tpu_torch import train_step as ts
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.data import MicroBatchDataLoader
+
+    with open(cs.CONFIG) as f:
+        raw = json.load(f)
+    raw["distributed"] = {}  # one of config #2's eight dp ranks
+    cfg = Config.from_dict(raw)
+    loader = MicroBatchDataLoader(cfg)
+    params, opt_state = ts.init_state(cfg, device=torch.device("cuda"),
+                                      seed=cs.SEED)
+    step_fn = ts.build_train_step(cfg)
+    times, losses = [], []
+    for i in range(cs.WARMUP_STEPS + cs.TIMED_STEPS):
+        b = next(loader)
+        t0 = time.perf_counter()
+        params, opt_state, loss = step_fn(params, opt_state, b["input_ids"],
+                                          b["target_ids"])
+        losses.append(float(loss))  # waits for the step
+        if i >= cs.WARMUP_STEPS:
+            times.append(time.perf_counter() - t0)
+    print(json.dumps({"root": root, "path": "train",
+                      "step_s": statistics.median(times),
+                      "steps_s": times, "losses": losses}), flush=True)
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+
+def _child(root: str, paths: list) -> None:
+    """One process's runs of ``paths``, on the tree at ``root``."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -53,9 +89,13 @@ def _child(root: str) -> None:
 
     from picotron_tpu_torch.inference import tenancy
 
+    if "train" in paths:
+        _train(root, torch, cs)
     for path, config, int8 in (("serve", cs.CONFIG, False),
                                ("serve_tenants", None, False),
                                ("serve_int8", cs.CONFIG_7B, True)):
+        if path not in paths:
+            continue
         registry = None
         if path == "serve_tenants":
             cfg = cs._tenancy_config()
@@ -104,10 +144,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", action="append", required=True,
                     help="a checkout of the repo; give exactly two")
+    ap.add_argument("--path", action="append", choices=SERVING + ("train",),
+                    help="run only these paths (default: the serving ones)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    paths = args.path or list(SERVING)
     if args.child:
-        _child(os.path.abspath(args.root[0]))
+        _child(os.path.abspath(args.root[0]), paths)
         return 0
     if len(args.root) != 2:
         ap.error("give exactly two --root")
@@ -116,14 +159,14 @@ def main(argv=None) -> int:
     for root in (old, new, new, old):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", "--root",
-             root], cwd=root, check=True, stdout=subprocess.PIPE, text=True)
+             root, *(f"--path={p}" for p in paths)], cwd=root, check=True,
+            stdout=subprocess.PIPE, text=True)
         for line in out.stdout.splitlines():
             if line.startswith("{"):
                 print(line, flush=True)
                 rec = json.loads(line)
                 tree = "old" if root == old else "new"
-                for key in ("decode_tokens_per_s", "ttft_p50_s",
-                            "ttft_max_s"):
+                for key in (k for k in KEYS if k in rec):
                     rates.setdefault(key, {}).setdefault(
                         rec["path"], {}).setdefault(tree, []).append(
                             rec[key])
