@@ -121,10 +121,27 @@ Run from the root of a checkout. Phases, each of which must pass:
    kernel launched. Then the ``picotron_tpu_torch.train`` command line on
    config #1, on the card by default, and one training step under
    torch.profiler;
-9. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+9. checkpoints, on config #1's model (full-width SmolLM-1.7B, 5 layers,
+   seq 128 x micro-batch 4, bf16) in a temporary directory the phase
+   deletes: 4 training steps saving every 2, then the trainer's command
+   line with ``load_path: "auto"`` to step 6, which must log that it
+   resumed at step 4 and give the losses of an uninterrupted 6-step run
+   from the same seed bit for bit; a full restore and a save of step 6
+   and the HF export of its parameters (timed, with their bytes), the
+   export loaded back in bf16 (the same bits) and int8 (timed); a child
+   ``python -m picotron_tpu_torch.train`` sent SIGTERM after its first
+   step, which must exit 75 having flushed a readable checkpoint at the
+   step it reached; then the generate command line with ``--hf-path`` on
+   the export and ``--load-path`` on the checkpoint directory, on the
+   card by default, which must serve the same greedy tokens, each within
+   phase 3's margin of the loaded weights' top logit, launching A, B and
+   C, and ``--hf-path --weight-dtype int8 --kv-cache-dtype int8
+   --check-weight-parity``, launching G and C-int8. One
+   ``{"checkpoint": ...}`` line with the seconds and bytes;
+10. a ``{"kernels": [...]}`` line with each kernel's launches on its own
    path (and on each path: ``serve``, ``serve_paged``,
    ``serve_paged_int8``, ``serve_mixed``, ``serve_tenants``,
-   ``serve_int8``, ``train``), then
+   ``serve_int8``, ``train``, ``checkpoint``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
@@ -2086,6 +2103,294 @@ def _train_phase(torch, card: str, path_kernels, all_kernels) -> dict:
     return counts
 
 
+def _cli(fn, argv) -> tuple:
+    """Run a command line's ``main`` in this process with its standard
+    output captured (and printed after it): (exit code, output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    print(out.getvalue(), end="", flush=True)
+    return rc, out.getvalue()
+
+
+def _streams_of(out: str) -> list:
+    """The generate command line's ``[uid] prompt=[...] -> [...]`` lines as
+    (uid, prompt, tokens)."""
+    return [(uid, json.loads(p), json.loads(t)) for uid, p, t in re.findall(
+        r"^\[(\S+)\] prompt=(\[.*?\]) -> (\[.*?\]) \(", out, re.M)]
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _, names in os.walk(path) for n in names)
+
+
+def _sigterm_child(config: str, save_dir: str, timeout: float) -> dict:
+    """Phase 9's SIGTERM check: ``python -m picotron_tpu_torch.train`` in a
+    child process, on the card by default, sent SIGTERM after its first
+    ``Step:`` line. It must exit ``EXIT_PREEMPTED`` within ``timeout``
+    seconds, having flushed a checkpoint at the step it reached."""
+    import signal
+
+    from picotron_tpu_torch.resilience.preemption import EXIT_PREEMPTED
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "picotron_tpu_torch.train", "--config",
+         config], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("Step:"):
+                proc.send_signal(signal.SIGTERM)
+                t_sig = time.perf_counter()
+                break
+        else:
+            raise AssertionError("the child trainer printed no Step: line")
+        rest, _ = proc.communicate(timeout=max(timeout - (t_sig - t0), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines) + rest
+    print(out, end="", flush=True)
+    flushed = re.search(r"flushed emergency checkpoint at step (\d+)", out)
+    if proc.returncode != EXIT_PREEMPTED or not flushed:
+        raise AssertionError(f"SIGTERM: the child trainer exited "
+                             f"{proc.returncode} (want {EXIT_PREEMPTED}) "
+                             f"with{'' if flushed else ' no'} flush")
+    return {"exit": proc.returncode, "step": int(flushed.group(1)),
+            "seconds_to_exit_after_signal": time.perf_counter() - t_sig,
+            "seconds": time.perf_counter() - t0}
+
+
+def _checkpoint_phase(torch, card: str, path_kernels, all_kernels) -> dict:
+    """Phase 9: checkpoints on config #1's model (full-width SmolLM-1.7B,
+    5 layers, seq 128 x micro-batch 4, bf16), in a temporary directory
+    that the phase deletes. Every kernel's count is set to 0 just before
+    the phase and read just after; returns those counts, of which each of
+    ``path_kernels`` must be above 0."""
+    import shutil
+    import tempfile
+
+    from picotron_tpu_torch import checkpoint as ckpt
+    from picotron_tpu_torch import train as train_cli
+    from picotron_tpu_torch import train_step as ts
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.tools import generate
+
+    with open(CONFIG_1) as f:
+        base = json.load(f)
+    cfg = Config.from_dict(base)
+    m = cfg.model
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    run_dir = os.path.join(tmp, "run")
+
+    def config(name: str, **sections) -> str:
+        raw = json.loads(json.dumps(base))
+        for section, kv in sections.items():
+            raw.setdefault(section, {}).update(kv)
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        return path
+
+    def counted(fn) -> dict:
+        for kern in all_kernels:
+            kern.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return {kern.name: kern.launches for kern in all_kernels}
+
+    totals = {kern.name: 0 for kern in all_kernels}
+    stages, t_stage = {}, [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stages[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    def add(counts: dict) -> dict:
+        for k, n in counts.items():
+            totals[k] += n
+        return counts
+
+    try:
+        # 1. four steps saving every two, the command line resuming at step
+        # 4 to step 6, and an uninterrupted six-step run: the same losses
+        four, resumed, whole = [], [], []
+        add(counted(lambda: train_cli.train(
+            Config.from_json(config("four", training={"total_train_steps": 4},
+                                    checkpoint={"save_dir": run_dir,
+                                                "save_frequency": 2})),
+            loss_history=four)))
+        if ckpt.CheckpointManager(run_dir).all_steps() != [2, 4]:
+            raise AssertionError(f"saved steps: "
+                                 f"{ckpt.CheckpointManager(run_dir).all_steps()}")
+        resume_cfg = config("resume", training={"total_train_steps": 6},
+                            checkpoint={"save_dir": run_dir,
+                                        "save_frequency": 2,
+                                        "load_path": "auto"})
+        out = {}
+
+        def run_resume():
+            out["rc"], out["text"] = _cli(
+                lambda argv: train_cli.main(argv, loss_history=resumed),
+                ["--config", resume_cfg])
+
+        add(counted(run_resume))
+        if out["rc"] != 0 or f"resumed from {run_dir} at step 4 " not in \
+                out["text"] or [s for s, _ in resumed] != [5, 6]:
+            raise AssertionError(f"resume: exit {out['rc']}, steps "
+                                 f"{[s for s, _ in resumed]}")
+        add(counted(lambda: train_cli.train(
+            Config.from_json(config("whole", training={"total_train_steps": 6},
+                                    checkpoint={"save_dir": os.path.join(
+                                        tmp, "unused")})),
+            loss_history=whole)))
+        got = [x for _, x in four + resumed]
+        want = [x for _, x in whole]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        resume = {"losses_resumed": got, "losses_whole": want,
+                  "bit_identical": got == want, "max_rel_diff": rel}
+        print(json.dumps({"checkpoint_resume": resume}), flush=True)
+        if got != want:
+            raise AssertionError(f"resumed losses {got} != uninterrupted "
+                                 f"{want} (max rel {rel:.3g})")
+        for old in (2, 4):  # step 6 is the one served below
+            shutil.rmtree(ckpt.CheckpointManager(run_dir).step_dir(old))
+        stage("save_and_resume")
+
+        # 2. a full restore (parameters and moments) of step 6 into a
+        # fresh state, a save of it, and the HF export of its parameters
+        params, opt_state = ts.init_state(cfg, device=DEVICE, seed=SEED + 1)
+        mgr = ckpt.CheckpointManager(run_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, step, _ = mgr.load(params, opt_state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_bytes = _dir_bytes(mgr.step_dir(step))
+        if step != 6 or opt_state["count"] != 6:
+            raise AssertionError(f"restored step {step}, count "
+                                 f"{opt_state['count']}")
+        t0 = time.perf_counter()
+        save_bytes = ckpt.CheckpointManager(os.path.join(tmp, "save")).save(
+            step, params, opt_state, 6 * cfg.tokens_per_step)
+        save_s = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(tmp, "save"))
+        del opt_state
+        hf_path = os.path.join(tmp, "hf", "model.safetensors")
+        t0 = time.perf_counter()
+        export_bytes = ckpt.save_hf_safetensors(params, hf_path)
+        export_s = time.perf_counter() - t0
+        for p in ts.param_leaves(params):
+            p.requires_grad_(False)
+        torch.cuda.empty_cache()
+
+        loads = {}
+        for wdt in ("bf16", "int8"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree = ckpt.load_hf_safetensors(hf_path, m, weight_dtype=wdt,
+                                            device=DEVICE)
+            torch.cuda.synchronize()
+            loads[wdt] = time.perf_counter() - t0
+            if wdt == "bf16":
+                for a, b in zip(ts.param_leaves(tree),
+                                ts.param_leaves(params)):
+                    if not torch.equal(a, b):
+                        raise AssertionError("the HF export does not load "
+                                             "back to the same bits")
+            del tree
+        torch.cuda.empty_cache()
+        stage("restore_save_export_load")
+
+        # 3. SIGTERM: a child trainer flushes and exits 75
+        sig_dir = os.path.join(tmp, "sigterm")
+        sig = _sigterm_child(config("sigterm", training={
+            "total_train_steps": 1000},
+            checkpoint={"save_dir": sig_dir, "save_frequency": 1000},
+            resilience={"handle_signals": True}), sig_dir, timeout=240)
+        _, sig_step, _ = ckpt.CheckpointManager(sig_dir).load_params(
+            m, device=DEVICE)
+        if sig_step != sig["step"]:
+            raise AssertionError(f"SIGTERM: flushed step {sig['step']}, "
+                                 f"restored {sig_step}")
+        shutil.rmtree(sig_dir)
+        stage("sigterm")
+
+        # 4. serve the export and the checkpoint: the same greedy tokens,
+        # each stream within the margin of the loaded weights' top logit
+        prompts = ["--prompt-ids", "5,276,388", "--prompt-ids",
+                   ",".join(str(i) for i in range(1, 41))]
+        common = ["--config", CONFIG_1, *prompts, "--max-new-tokens", "16",
+                  "--slots", "2", "--attend-impl", "flash"]
+        streams, serve_launches = {}, {}
+        for source, arg in (("hf", ["--hf-path", hf_path]),
+                            ("load", ["--load-path", run_dir])):
+            def serve(arg=arg, source=source):
+                out["rc"], out["text"] = _cli(generate.main, [*arg, *common])
+                streams[source] = _streams_of(out["text"])
+
+            serve_launches[source] = add(counted(serve))
+            if out["rc"] != 0 or len(streams[source]) != 2:
+                raise AssertionError(f"generate --{source}: exit "
+                                     f"{out['rc']}")
+        if streams["hf"] != streams["load"]:
+            raise AssertionError(f"--hf-path and --load-path streams "
+                                 f"differ: {streams}")
+        gaps = {}
+        for uid, prompt, tokens in streams["hf"]:
+            res = type("Result", (), {"uid": uid, "prompt": prompt,
+                                      "tokens": tokens})
+            gaps[uid] = _greedy_agrees(torch, llama, params, cfg, res)
+
+        def serve_int8():
+            out["rc"], out["text"] = _cli(generate.main, [
+                "--hf-path", hf_path, *common, "--weight-dtype", "int8",
+                "--kv-cache-dtype", "int8", "--check-weight-parity"])
+
+        serve_launches["hf_int8"] = add(counted(serve_int8))
+        if out["rc"] != 0:
+            raise AssertionError(f"generate --hf-path --weight-dtype int8: "
+                                 f"exit {out['rc']}")
+        need = {"hf": ("rmsnorm", "flash_attention", "flash_decode"),
+                "load": ("rmsnorm", "flash_attention", "flash_decode"),
+                "hf_int8": ("quant_matmul", "flash_decode_int8")}
+        for source, names in need.items():
+            idle = [n for n in names if not serve_launches[source].get(n)]
+            if idle:
+                raise AssertionError(f"generate ({source}) launched no "
+                                     f"{idle}")
+        stage("serve")
+        idle = [k.name for k in path_kernels if totals[k.name] == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on the checkpoint "
+                                 f"path: {idle}")
+        print(json.dumps({"checkpoint": {
+            "card": card, "model": f"{m.name} L={m.num_hidden_layers} "
+                                   f"H={m.hidden_size} {m.dtype}",
+            "n_params": llama.num_params(m),
+            "save_s": save_s, "save_bytes": save_bytes,
+            "restore_s": restore_s, "restore_bytes": restore_bytes,
+            "hf_export_s": export_s, "hf_export_bytes": export_bytes,
+            "hf_load_s_bf16": loads["bf16"], "hf_load_s_int8": loads["int8"],
+            "resume": {"bit_identical": resume["bit_identical"],
+                       "max_rel_diff": resume["max_rel_diff"]},
+            "sigterm": sig, "greedy_max_logit_gap": max(gaps.values()),
+            "serve_launches": serve_launches, "stage_s": stages,
+            "launches": {k.name: totals[k.name] for k in path_kernels}}}),
+            flush=True)
+        return totals
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "picotron_tpu_torch")):
         raise RuntimeError("run chip_smoke.py from a checkout of the repo")
@@ -2114,6 +2419,11 @@ def main() -> int:
         TRAINING_KERNELS,
         build,
     )
+    # the checkpoint phase trains and resumes (A, B, D, E, F), then serves
+    # the loaded weights in bf16 (A, B, C) and int8 (A, B, G, C-int8)
+    CHECKPOINT_KERNELS = tuple({k.name: k for k in TRAINING_KERNELS
+                                + SERVING_KERNELS
+                                + SERVING_INT8_KERNELS}.values())
 
     # 1. build
     build_s = build.timed_library()
@@ -2168,8 +2478,12 @@ def main() -> int:
     # 8. the training path at full width and depth
     by_path["train"] = timed("train", lambda: _train_phase(
         torch, card, TRAINING_KERNELS, KERNELS))
+    # 9. checkpoints: save, resume, the SIGTERM flush, export and serving
+    # the loaded weights (bf16, then int8)
+    by_path["checkpoint"] = timed("checkpoint", lambda: _checkpoint_phase(
+        torch, card, CHECKPOINT_KERNELS, KERNELS))
 
-    # 9. the closing lines: each kernel's launches on its own path (the
+    # 10. the closing lines: each kernel's launches on its own path (the
     # first path that runs it: serving for A, B, C; each paged run for its
     # variant of C; the tenancy run for H; int8 serving for C-int8 and G;
     # training for D, E, F), and on each path

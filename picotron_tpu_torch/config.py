@@ -38,10 +38,11 @@ by the generate CLI (only the JAX package's ``tools/serve.py`` reads them,
 and the port has no serve.py yet), and ``Config.check_trainable`` (called
 by the trainer) refuses what the port's trainer lacks: any parallelism
 (dp, tp, pp or cp above 1, zero1, fsdp), ``remat`` ``"save_attn"`` and
-``"offload"``, HF datasets, checkpoint saving, loading and HF bootstrap,
-``steps_per_call`` above 1, and the resilience, observability, wandb and
-profiling features of the JAX trainer. A serving run of a multi-device
-config still loads.
+``"offload"``, HF datasets, a checkpoint mirror tier
+(``resilience.ckpt_mirror_dir``), ``steps_per_call`` above 1, and the
+resilience (apart from signals, retried checkpoint I/O and the
+non-finite gate), observability, wandb and profiling features of the JAX
+trainer. A serving run of a multi-device config still loads.
 """
 
 from __future__ import annotations
@@ -134,12 +135,19 @@ class DatasetConfig:
 
 @dataclass
 class CheckpointConfig:
-    """Read only so that ``check_trainable`` can refuse checkpointing,
-    which the port does not have yet."""
+    """The trainer's checkpoints (``checkpoint.py``): saved under
+    ``save_dir`` every ``save_frequency`` steps, resumed from
+    ``load_path`` ("auto": the latest step under ``save_dir``), or
+    weights taken from an HF safetensors file before training."""
 
+    save_dir: str = "checkpoints"
     save_frequency: int = 0  # 0 = disabled
+    # a checkpoint directory to resume from (it must hold one), or "auto"
     load_path: str = ""
+    # an HF-format safetensors file or directory to start from
     hf_bootstrap_path: str = ""
+    # True: validate the HF file's names and shapes, keep the seed's init
+    hf_bootstrap_reinit: bool = False
 
 
 @dataclass
@@ -152,13 +160,32 @@ class LoggingConfig:
 
 @dataclass
 class ResilienceConfig:
-    """The one resilience feature the port has: the non-finite gate (a
-    step with a non-finite loss or gradient norm changes neither the
-    parameters nor the optimizer state). The other fields are read only
-    so that ``check_trainable`` (training) or ``check_servable`` (the
-    dispatch attempts) can refuse a config that turns them on."""
+    """The resilience the port has: the non-finite gate (a step with a
+    non-finite loss or gradient norm changes neither the parameters nor
+    the optimizer state), the SIGTERM/SIGINT flush, the final save on
+    exit, auto-resume and retried checkpoint I/O. The other fields are
+    read only so that ``check_trainable`` (training) or
+    ``check_servable`` (the dispatch attempts) can refuse a config that
+    turns them on."""
 
     nonfinite_guard: bool = True
+    # SIGTERM/SIGINT -> finish the step, save, exit 75 (EXIT_PREEMPTED)
+    handle_signals: bool = True
+    # the final save in the trainer's finally (needs save_frequency > 0)
+    save_on_exit: bool = True
+    # with save_frequency > 0 and no load_path, resume from the latest
+    # step under save_dir when there is one
+    auto_resume: bool = True
+    # checkpoint and safetensors I/O: attempts, backoff seconds (doubling
+    # per attempt) and jitter (a uniform [1, 1 + jitter] scale)
+    io_attempts: int = 3
+    io_backoff: float = 0.5
+    io_jitter: float = 0.25
+    # a second storage tier for checkpoints: refused by check_trainable
+    ckpt_mirror_dir: str = ""
+    # the flush on a signal runs on a thread joined with this deadline
+    # (0 = wait for it)
+    emergency_save_timeout_s: float = 600.0
     # serving: attempts per batcher dispatch. The port makes one and raises
     # on a failure; check_servable refuses more (the JAX batcher retries,
     # 2 attempts by default)
@@ -288,8 +315,6 @@ REFUSED_AT_LOAD = {
 _UNTIL_PP = "inert while pp_size = 1 (check_trainable)"
 _UNTIL_CP = "inert while cp_size = 1 (check_trainable)"
 _SYNTHETIC = "inert while the dataset is synthetic (check_trainable)"
-_NO_CKPT_IO = ("checkpoint I/O; inert while the trainer neither saves nor "
-               "loads (check_trainable)")
 _ONE_HOST = ("multi-host consensus; inert in the port's one process "
              "(check_trainable)")
 _NO_SPEC = "inert while inference.spec_len is 0 (refused otherwise)"
@@ -319,24 +344,12 @@ INERT_FIELDS = {
     ("dataset", "num_proc"): _SYNTHETIC,
     ("dataset", "subset_name"): _SYNTHETIC,
     ("dataset", "max_in_memory_tokens"): _SYNTHETIC,
-    ("checkpoint", "save_dir"): "inert while save_frequency is 0 "
-                                "(check_trainable)",
-    ("checkpoint", "hf_bootstrap_reinit"): "inert while hf_bootstrap_path "
-                                           "is empty (check_trainable)",
     ("logging", "run_name"): "names the wandb run; inert while use_wandb "
                              "is off (check_trainable)",
     ("logging", "profile_stop"): "inert while profile_start is 0 "
                                  "(check_trainable)",
     ("logging", "profile_dir"): "inert while profile_start is 0 "
                                 "(check_trainable)",
-    ("resilience", "handle_signals"): "the JAX trainer saves on a signal; "
-                                      "with saving refused "
-                                      "(check_trainable) there is nothing "
-                                      "to save",
-    ("resilience", "save_on_exit"): "inert while save_frequency is 0 "
-                                    "(check_trainable)",
-    ("resilience", "auto_resume"): "inert while the trainer saves no "
-                                   "checkpoint to resume (check_trainable)",
     ("resilience", "anomaly_ema_beta"): "tunes the loss-anomaly detector, "
                                         "which changes no step under "
                                         "anomaly_policy 'skip' "
@@ -353,11 +366,6 @@ INERT_FIELDS = {
                                       "'skip' (check_trainable)",
     ("resilience", "max_rollbacks"): "inert while anomaly_policy is 'skip' "
                                      "(check_trainable)",
-    ("resilience", "io_attempts"): _NO_CKPT_IO,
-    ("resilience", "io_backoff"): _NO_CKPT_IO,
-    ("resilience", "io_jitter"): _NO_CKPT_IO,
-    ("resilience", "ckpt_mirror_dir"): _NO_CKPT_IO,
-    ("resilience", "emergency_save_timeout_s"): _NO_CKPT_IO,
     ("resilience", "dispatch_backoff"): "inert while dispatch_attempts is "
                                         "1 (check_servable)",
     ("resilience", "consensus_interval"): _ONE_HOST,
@@ -393,13 +401,11 @@ _UNPORTED_TRAINING = (
     ("distributed", "zero1", False),
     ("distributed", "fsdp", False),
     ("training", "steps_per_call", 1),
-    ("checkpoint", "save_frequency", 0),
-    ("checkpoint", "load_path", ""),
-    ("checkpoint", "hf_bootstrap_path", ""),
     ("logging", "use_wandb", False),
     ("logging", "profile_start", 0),
     ("resilience", "anomaly_policy", "skip"),
     ("resilience", "heartbeat_path", ""),
+    ("resilience", "ckpt_mirror_dir", ""),
     ("resilience", "chaos_raise_step", 0),
     ("resilience", "chaos_nan_step", 0),
     ("resilience", "chaos_sigterm_step", 0),
@@ -533,6 +539,14 @@ class Config:
                 f"unknown grad_accum_dtype {t.grad_accum_dtype!r} (float32|param)")
         if self.resilience.dispatch_attempts < 1:
             raise ValueError("dispatch_attempts must be >= 1")
+        r = self.resilience
+        if r.io_attempts < 1:
+            raise ValueError("io_attempts must be >= 1")
+        if r.io_backoff < 0 or r.io_jitter < 0:
+            raise ValueError("io_backoff and io_jitter must be >= 0")
+        if r.emergency_save_timeout_s < 0:
+            raise ValueError(
+                "emergency_save_timeout_s must be >= 0 (0 = wait forever)")
         if self.resilience.anomaly_policy not in ("skip", "rollback", "abort"):
             raise ValueError(
                 f"unknown anomaly_policy {self.resilience.anomaly_policy!r} "

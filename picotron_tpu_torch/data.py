@@ -7,11 +7,14 @@ so the batches are the same bit for bit as the JAX loader's (whose native
 recurrence is pinned bitwise to that numpy path). The recurrence is
 sequential: about a second of host time for the 2 M-token corpus, once.
 HF datasets are not ported (``Config.check_trainable`` refuses them).
+A resumed run positions the loader with ``skip_steps`` after
+``verify_resume`` has checked the checkpoint's ``state_meta`` (after
+``picotron_tpu/data.py:212-264``).
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -73,6 +76,52 @@ class MicroBatchDataLoader:
         self._cursor = 0
         self._batch_offsets = np.arange(self.grad_acc * self.rows_per_step,
                                         dtype=np.int64)
+
+    def skip_steps(self, n_steps: int) -> None:
+        """Advance the cursor past ``n_steps`` global batches (resume)."""
+        total = n_steps * self.grad_acc * self.rows_per_step
+        wraps, self._cursor = divmod(self._cursor + total, len(self.samples))
+        self._epoch += wraps
+
+    def seek_steps(self, n_steps: int) -> None:
+        """Put the cursor at the start of global batch ``n_steps``, from
+        wherever it is."""
+        self._cursor = 0
+        self._epoch = 0
+        self.skip_steps(n_steps)
+
+    def state_meta(self, step: int) -> dict:
+        """The position after ``step`` global batches and the geometry it
+        was computed from, for a checkpoint's metadata."""
+        return {
+            "consumed_steps": int(step),
+            "consumed_rows": int(step) * self.grad_acc * self.rows_per_step,
+            "grad_acc": self.grad_acc,
+            "rows_per_step": self.rows_per_step,
+            "seq_length": self.seq_length,
+            "num_samples": len(self.samples),
+        }
+
+    def verify_resume(self, saved: Optional[dict], step: int) -> None:
+        """Hold a checkpoint's saved position against what
+        ``skip_steps(step)`` gives under this config, and raise on any
+        difference: a changed micro-batch size, grad-accum, seq_length or
+        corpus size would resume on other tokens than the saving run's. A
+        checkpoint without the record (``saved`` None) passes."""
+        if not saved:
+            return
+        cur = self.state_meta(step)
+        bad = {k: (saved[k], cur[k])
+               for k in sorted(set(saved) & set(cur)) if saved[k] != cur[k]}
+        if bad:
+            detail = ", ".join(
+                f"{k}: saved={s} now={n}" for k, (s, n) in bad.items())
+            raise ValueError(
+                f"checkpoint data-loader position does not match this "
+                f"config ({detail}); the batch geometry changed between "
+                f"save and resume — resuming would silently train on "
+                f"different data. Restore under the saving run's geometry "
+                f"or start a fresh run.")
 
     def __iter__(self) -> Iterator[dict]:
         return self

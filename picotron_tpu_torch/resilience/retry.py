@@ -1,0 +1,48 @@
+"""Bounded retry with exponential backoff and jitter for flaky I/O.
+
+Port of ``picotron_tpu/resilience/retry.py``: checkpoint saves and
+restores and safetensors opens cross network mounts where transient
+errors are routine. Attempts are bounded (a deterministic failure surfaces
+quickly, with the original exception), delays grow exponentially, and
+jitter decorrelates processes that hit the same flake at once.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import Callable
+
+from picotron_tpu_torch.utils import log0
+
+
+def retry(
+    fn: Callable,
+    attempts: int = 3,
+    backoff: float = 0.5,
+    jitter: float = 0.25,
+    desc: str = "",
+    sleep: Callable[[float], None] = time.sleep,
+    rng: Callable[[], float] = random.random,
+):
+    """Call ``fn()`` up to ``attempts`` times; return its result.
+
+    The delay before attempt k + 1 is ``backoff * 2**(k-1)`` scaled by a
+    uniform jitter in [1, 1 + jitter]. The last failure re-raises the
+    original exception unchanged. ``KeyboardInterrupt`` and ``SystemExit``
+    are never swallowed (they are not ``Exception``s). ``sleep`` and
+    ``rng`` are injectable so tests run at once and deterministically.
+    """
+    if attempts < 1:
+        raise ValueError(f"retry needs attempts >= 1, got {attempts}")
+    for attempt in range(1, attempts + 1):
+        try:
+            return fn()
+        except Exception as e:
+            if attempt == attempts:
+                raise
+            delay = backoff * (2 ** (attempt - 1)) * (1.0 + jitter * rng())
+            log0(f"retry{f' [{desc}]' if desc else ''}: attempt "
+                 f"{attempt}/{attempts} failed ({type(e).__name__}: {e}); "
+                 f"retrying in {delay:.2f}s", flush=True)
+            sleep(delay)

@@ -1,16 +1,26 @@
 """Text generation CLI for the PyTorch port -- the serving path end to end.
 
     python -m picotron_tpu_torch.tools.generate \
-        --config configs/2_smollm_dp8/config.json --random-init \
+        --config configs/2_smollm_dp8/config.json --hf-path model.safetensors \
         --prompt-ids 5,276,388 --prompt-ids 9,10,11 --max-new-tokens 64
 
-Weights come from ``--random-init`` (seed-derived random weights with the
-model's init laws); loading checkpoints is not ported yet. All prompts run
+Weights come from exactly one of:
+
+  --load-path    the port's training checkpoint directory (the trainer's
+                 ``checkpoint.save_dir``; its newest readable step,
+                 parameters only: ``CheckpointManager.load_params``)
+  --hf-path      an HF-format safetensors file or directory
+                 (``checkpoint.load_hf_safetensors``)
+  --random-init  seed-derived random weights with the model's init laws
+
+A ``--load-path`` that holds an orbax checkpoint of the JAX package is
+refused with a message: the port cannot read orbax. All prompts run
 through one ContinuousBatcher on the CUDA card. The closing summary line
 has the same form as ``picotron_tpu.tools.generate``'s.
 
-``--weight-dtype int8`` quantizes the fresh tree per output channel
-(``llama.quantize_params``) and serves it through kernel G;
+``--weight-dtype int8`` quantizes the weights per output channel as they
+load (from a file, leaf by leaf as they come off it; a fresh tree through
+``llama.quantize_params``) and serves them through kernel G;
 ``--kv-cache-dtype int8`` keeps the cache as int8 rows with fp32 scales.
 ``--kv-layout paged`` serves from a page pool with radix prefix sharing
 (``--kv-page-policy hot_bf16`` reads shared pages at full precision and
@@ -66,12 +76,28 @@ def _build_adapter(args, cfg) -> tuple:
 
 
 def _load_weights(args, engine, weight_dtype: str):
-    """The seed's random tree on the engine's device, quantized for
-    ``weight_dtype`` "int8" (the dense tree is dropped on return)."""
+    """The weights of ``--hf-path``, ``--load-path`` or ``--random-init``
+    on the engine's device, quantized as they load for ``weight_dtype``
+    "int8" (a random tree's dense copy is dropped on return)."""
+    from picotron_tpu_torch import checkpoint as ckpt
     from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.utils import log0
 
-    params = llama.init_params(engine.cfg.model, seed=args.seed,
-                               device=engine.device)
+    m, r = engine.cfg.model, engine.cfg.resilience
+    io = dict(io_attempts=r.io_attempts, io_backoff=r.io_backoff,
+              io_jitter=r.io_jitter)
+    if args.hf_path:
+        return ckpt.load_hf_safetensors(args.hf_path, m,
+                                        weight_dtype=weight_dtype,
+                                        device=engine.device, **io)
+    if args.load_path:
+        mgr = ckpt.CheckpointManager(args.load_path, **io)
+        params, step, tokens = mgr.load_params(
+            m, device=engine.device, weight_dtype=weight_dtype)
+        log0(f"loaded step {step} ({tokens} trained tokens) from "
+             f"{args.load_path}")
+        return params
+    params = llama.init_params(m, seed=args.seed, device=engine.device)
     return llama.quantize_params(params) if weight_dtype == "int8" else params
 
 
@@ -144,9 +170,13 @@ def main(argv=None, device=None) -> int:
                     "(continuous-batched KV-cache decode)")
     ap.add_argument("--config", required=True,
                     help="experiment config.json (model shape, inference)")
+    ap.add_argument("--load-path", default="",
+                    help="the port's training checkpoint directory "
+                         "(parameters of its newest readable step)")
+    ap.add_argument("--hf-path", default="",
+                    help="HF-format safetensors file or directory")
     ap.add_argument("--random-init", action="store_true",
-                    help="seed-derived random weights (the only weight "
-                         "source ported so far)")
+                    help="seed-derived random weights (plumbing smoke)")
     ap.add_argument("--prompt-ids", action="append",
                     help="comma-separated token ids (repeatable)")
     ap.add_argument("--max-new-tokens", type=int, default=32)
@@ -209,8 +239,9 @@ def main(argv=None, device=None) -> int:
                          "the card the first difference and its logit "
                          "gap are reported")
     args = ap.parse_args(argv)
-    if not args.random_init:
-        ap.error("pass --random-init (checkpoint loading is not ported yet)")
+    if sum(map(bool, (args.load_path, args.hf_path, args.random_init))) != 1:
+        ap.error("pass exactly one of --load-path / --hf-path / "
+                 "--random-init")
 
     from picotron_tpu_torch.config import Config
     from picotron_tpu_torch.inference import tenancy
@@ -224,6 +255,10 @@ def main(argv=None, device=None) -> int:
                  "tools/serve.py, which the PyTorch port does not have "
                  "yet; generate serves one adapter with --adapter "
                  "RANK[:SEED[:SCALE]]")
+    if args.load_path and cfg.resilience.ckpt_mirror_dir:
+        ap.error("resilience.ckpt_mirror_dir: the PyTorch port keeps no "
+                 "checkpoint mirror tier yet; --load-path reads the "
+                 "directory it is given")
     if args.kv_cache_dtype is not None:
         cfg.inference.kv_cache_dtype = args.kv_cache_dtype
     if args.kv_layout is not None:

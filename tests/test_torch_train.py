@@ -361,8 +361,8 @@ def test_training_config_loads_validates_and_refuses_unported():
                ({"dataset": {"name": "roneneldan/TinyStories"}},
                 "HF datasets"),
                ({"distributed": {"zero1": True}}, "distributed.zero1"),
-               ({"checkpoint": {"save_frequency": 10}},
-                "checkpoint.save_frequency"),
+               ({"resilience": {"ckpt_mirror_dir": "/mnt/mirror"}},
+                "resilience.ckpt_mirror_dir"),
                ({"logging": {"use_wandb": True}}, "logging.use_wandb"),
                ({"resilience": {"chaos_nan_step": 3}},
                 "resilience.chaos_nan_step")]
