@@ -65,7 +65,15 @@ Run from the root of a checkout. Phases, each of which must pass:
    two ``torch.bmm`` over gathered adapters (and, fused, the cast and the
    add) as its yardstick; at the SmolLM decode shape the model's seam
    (``llama.matmul`` over an adapter leaf) must run two device kernels a
-   call, the base product and H;
+   call, the base product and H. Then the verify shape of speculative
+   decoding (spec_len 4: 8 slots of 5 rows, each at its own offset): C in
+   all five variants at the decode windows (T 2048, C-int8 4096), head_dim
+   64 and 128, lengths that leave a slot free, give a slot rows that see no
+   key and end on either side of a 128-key tile, plus a GQA row (5 x 4 =
+   20 rows a kv head: the chunk rows on wgmma); G at M 40 (wgmma) on
+   Llama-2-7B's w_up and lm_head shapes; H in both modes at B 8, S 5, K N
+   2048; each against its plain version, one launch a call, the same bits
+   twice, with its bound and library time;
 3. the serving path: SmolLM-1.7B at full width and depth (random weights
    from a fixed seed, bf16) behind InferenceEngine + ContinuousBatcher with
    ``attend_impl="flash"``, serving 8 requests (six greedy, two sampled;
@@ -138,11 +146,27 @@ Run from the root of a checkout. Phases, each of which must pass:
    C, and ``--hf-path --weight-dtype int8 --kv-cache-dtype int8
    --check-weight-parity``, launching G and C-int8. One
    ``{"checkpoint": ...}`` line with the seconds and bytes;
-10. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+10. speculative decoding (``spec_len`` 4) on phase 3's model: contiguous
+   bf16 with the n-gram drafter (``serve_spec``), with the learned drafter
+   and the spec_len controller (``serve_spec_learned``), paged bf16 with
+   the n-gram drafter on phase 5's traffic (``serve_spec_paged``: 4 prefix
+   hits and 1223 cached tokens), a scripted drafter that proposes the
+   first run's greedy streams (``serve_spec_oracle``: more than half its
+   drafts accepted, so the multi-token emit path runs) and one that
+   proposes phase 3's spec-off streams (``serve_spec_offscript``: its
+   accept rate and where the two runs' greedy chains part are printed).
+   Each run must return full budgets, launch its path's kernels (C's
+   variant at S = 5) and no other, and pass phase 3's greedy gate; its
+   line prints decode tokens/s, dispatches per token and the accept rate
+   beside phases 3's and 5's spec-off figures. Then the generate command
+   line with ``--spec-len 4 --spec-ngram 3``, on the card by default;
+11. a ``{"kernels": [...]}`` line with each kernel's launches on its own
    path (and on each path: ``serve``, ``serve_paged``,
    ``serve_paged_int8``, ``serve_mixed``, ``serve_tenants``,
-   ``serve_int8``, ``train``, ``checkpoint``), then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   ``serve_int8``, ``train``, ``checkpoint``, ``serve_spec``,
+   ``serve_spec_learned``, ``serve_spec_paged``, ``serve_spec_oracle``,
+   ``serve_spec_offscript``),
+   then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
 CUDA card, or outside a checkout that holds the package, it fails at once.
@@ -262,6 +286,17 @@ H_DECODE_IDS = (0, 1, 2, 3, 1, 0, 3, 2)
 # H vs its plain version: both sum fp32 products of the same bf16 inputs,
 # in different orders
 LORA_ATOL = LORA_RTOL = 1e-4
+# the verify shape of speculative decoding (spec_len 4): 8 slots of S = 5
+# rows at their own offsets; lengths (query rows' ends) that hold a free
+# slot (0), a slot whose first rows see no key (3), and ends on either side
+# of a 128-key tile
+SPEC_LEN = 4
+VERIFY_S = SPEC_LEN + 1
+VERIFY_LENS = [0, 3, 127, 128, 129, 133, 700, 2048]
+VERIFY_LENS_INT8 = [0, 3, 127, 129, 964, 2000, 3000, 4096]
+# G at the verify's row count on Llama-2-7B (8 slots x 5 rows): above
+# quant_matmul.SPLITK_MAX_M, so the wgmma path
+VERIFY_M = 8 * VERIFY_S
 WARMUP_STEPS = 2  # training steps before the timed ones
 TIMED_STEPS = 8
 # kernel path vs plain path, one training step in bf16 (phase 8): the two
@@ -673,7 +708,62 @@ def _kernel_checks(torch, F) -> dict:
     _paged_kernel_checks(torch, F, randn, record)
     _training_kernel_checks(torch, F, randn, record)
     _lora_kernel_checks(torch, randn, record)
+    _verify_kernel_checks(torch, F, randn, record)
     return records
+
+
+def _g_row(torch, randn, record, M, K, N, main, variant=None) -> None:
+    """One G row: kernel G on [M, K] x int8 [K, N] against its plain
+    version, the same bits twice, one device kernel a call, with aten's
+    int8-weight matmul (or cuBLAS on a bf16 copy of the weight) and
+    ``torch.matmul`` on a bf16 copy as yardsticks."""
+    from picotron_tpu_torch.ops.kernels import quant_matmul as kg
+    from picotron_tpu_torch.ops.quant_matmul import quantize_weight
+
+    int8mm = getattr(torch.ops.aten, "_weight_int8pack_mm", None)
+    x = randn(M, K)
+    w = quantize_weight(randn(K, N).float() * 0.02)
+    q, s = w["q"], w["s"]
+    name = f"quant_matmul M={M} K={K} N={N}"
+    got = kg.quant_matmul_2d(x, q, s)
+    err = _check(name, got, kg.quant_matmul_plain(x, q, s))
+    if not torch.equal(kg.quant_matmul_2d(x, q, s), got):
+        raise AssertionError(f"{name}: two calls differ")
+    # the yardstick: aten's int8-weight matmul where this torch has it
+    # for CUDA, else cuBLAS on a bf16 copy of the weight made here,
+    # outside the timing
+    lib_name, lib_ms, lib = None, None, None
+    if int8mm is not None:
+        qt, sb = q.t().contiguous(), s.to(torch.bfloat16)
+        try:
+            int8mm(x, qt, sb)
+            lib = lambda: int8mm(x, qt, sb)  # noqa: E731
+            lib_ms = _time_ms(lib)
+            lib_name = "aten._weight_int8pack_mm"
+        except (RuntimeError, NotImplementedError):
+            pass
+    # a second yardstick, never called by the port: torch.matmul on a
+    # bf16 copy of the weight (made here, outside the timing), what the
+    # tensor cores give this shape
+    wb = q.to(torch.bfloat16)
+    mm = lambda: x @ wb  # noqa: E731
+    if lib_ms is None:
+        lib = mm
+        lib_ms = _time_ms(lib)
+        lib_name = "torch.matmul on a bf16 copy of the weight"
+    run = lambda: kg.quant_matmul_2d(x, q, s)  # noqa: E731
+    ms, per, names = _launches_a_call(torch, name, run, "quant_matmul")
+    record(kg.KERNEL, {"M": M, "K": K, "N": N,
+                       "plan": kg.plan(M, K, N)}, err,
+           _time_ms(run),
+           _time_ms(lambda: kg.quant_matmul_plain(x, q, s)), lib_ms,
+           _bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N),
+           main=main, variant=variant, library=lib_name,
+           extra={"device_ms": ms, "device_kernels": names,
+                  "device_events_per_call": per,
+                  "library_device_ms": _device_ms(torch, lib),
+                  "bf16_matmul_ms": _time_ms(mm),
+                  "bf16_matmul_device_ms": _device_ms(torch, mm)})
 
 
 def _int8_kernel_checks(torch, F, randn, record) -> None:
@@ -684,60 +774,15 @@ def _int8_kernel_checks(torch, F, randn, record) -> None:
     from picotron_tpu_torch.inference.kv_cache import quantize_kv
     from picotron_tpu_torch.ops.kernels import decode_attention as kc
     from picotron_tpu_torch.ops.kernels import quant_matmul as kg
-    from picotron_tpu_torch.ops.quant_matmul import quantize_weight
 
     dev = torch.device(DEVICE)
-    int8mm = getattr(torch.ops.aten, "_weight_int8pack_mm", None)
     for M, K, N in [(M, K, N) for K, N in G_SHAPES for M in (1, 8, 512)] \
             + [(37, 4100, 1000), (5, 4100, 1000)]:
-        x = randn(M, K)
-        w = quantize_weight(randn(K, N).float() * 0.02)
-        q, s = w["q"], w["s"]
-        name = f"quant_matmul M={M} K={K} N={N}"
-        got = kg.quant_matmul_2d(x, q, s)
-        err = _check(name, got, kg.quant_matmul_plain(x, q, s))
-        if not torch.equal(kg.quant_matmul_2d(x, q, s), got):
-            raise AssertionError(f"{name}: two calls differ")
-        # the yardstick: aten's int8-weight matmul where this torch has it
-        # for CUDA, else cuBLAS on a bf16 copy of the weight made here,
-        # outside the timing
-        lib_name, lib_ms, lib = None, None, None
-        if int8mm is not None:
-            qt, sb = q.t().contiguous(), s.to(torch.bfloat16)
-            try:
-                int8mm(x, qt, sb)
-                lib = lambda: int8mm(x, qt, sb)  # noqa: E731
-                lib_ms = _time_ms(lib)
-                lib_name = "aten._weight_int8pack_mm"
-            except (RuntimeError, NotImplementedError):
-                pass
-        # a second yardstick, never called by the port: torch.matmul on a
-        # bf16 copy of the weight (made here, outside the timing), what the
-        # tensor cores give this shape
-        wb = q.to(torch.bfloat16)
-        mm = lambda: x @ wb  # noqa: E731
-        if lib_ms is None:
-            lib = mm
-            lib_ms = _time_ms(lib)
-            lib_name = "torch.matmul on a bf16 copy of the weight"
-        run = lambda: kg.quant_matmul_2d(x, q, s)  # noqa: E731
-        ms, per, names = _launches_a_call(torch, name, run, "quant_matmul")
-        record(kg.KERNEL, {"M": M, "K": K, "N": N,
-                           "plan": kg.plan(M, K, N)}, err,
-               _time_ms(run),
-               _time_ms(lambda: kg.quant_matmul_plain(x, q, s)), lib_ms,
-               _bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N),
+        _g_row(torch, randn, record, M, K, N,
                main=(M, K, N) in ((8, 4096, 11008), (512, 4096, 11008),
                                   (8, 4096, 32000)),
                variant={(512, 4096, 11008): "prefill",
-                        (8, 4096, 32000): "lm_head"}.get((M, K, N)),
-               library=lib_name,
-               extra={"device_ms": ms, "device_kernels": names,
-                      "device_events_per_call": per,
-                      "library_device_ms": _device_ms(torch, lib),
-                      "bf16_matmul_ms": _time_ms(mm),
-                      "bf16_matmul_device_ms": _device_ms(torch, mm)})
-        del x, w, q, s, got, wb, lib, mm
+                        (8, 4096, 32000): "lm_head"}.get((M, K, N)))
     torch.cuda.synchronize()
     for dev, (_, counters) in kg.SCRATCH.items():
         if bool(counters.any()):
@@ -987,6 +1032,177 @@ def _paged_kernel_checks(torch, F, randn, record) -> None:
         torch.cuda.empty_cache()
 
 
+def _c_verify_row(torch, F, kc, kernel, name, shape, q, k, v, lengths,
+                  scale, record, variant, main=True, k_scale=None,
+                  v_scale=None, block_tables=None, k_quant=None,
+                  v_quant=None, page_quant=None, plain=None,
+                  windows=None, kv_bytes=None) -> None:
+    """One C row at the verify shape: the kernel against its plain version
+    (every live slot; rows that see no key exactly 0), one launch a call
+    and the same bits twice (``_c_extra``), SDPA over the (gathered,
+    dequantized) window as the yardstick, and the bound: each key a slot
+    reads once (``kv_bytes``, or the window's), q and the output once, the
+    products of the visible (query, key) pairs."""
+    B, S, nh, D = q.shape
+    nkv = k.shape[-2]
+    g = nh // nkv
+    lens = lengths.tolist()
+    run = lambda: kc.flash_decode_attention(  # noqa: E731
+        q, k, v, lengths, scale, k_scale=k_scale, v_scale=v_scale,
+        block_tables=block_tables, k_quant=k_quant, v_quant=v_quant,
+        page_quant=page_quant)
+    got, want = run(), plain()
+    live = lengths > 0
+    tol = ({"atol": PAGED_ATOL, "rtol": PAGED_RTOL}
+           if block_tables is not None else {})
+    err = _check(f"{kernel.name} {name}", got, want, mask=live, **tol)
+    _empty_rows_zero(f"{kernel.name} {name}", got, lens, S)
+    kw, vw = windows
+    T = kw.shape[1]
+    pos_q = lengths[:, None] - S + torch.arange(S, device=q.device)[None]
+    amask = (torch.arange(T, device=q.device)[None, None]
+             <= pos_q[:, :, None])[:, None]  # [B, 1, S, T]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.to(torch.bfloat16).repeat_interleave(g, 2).transpose(1, 2)
+              .contiguous() for t in (kw, vw))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=amask, scale=scale)
+    visible = sum(max(0, min(L - S + s + 1, T)) for L in lens
+                  for s in range(S))
+    if kv_bytes is None:
+        row = 2 * (D + 4) if k.dtype == torch.int8 else 2 * D * 2
+        kv_bytes = sum(min(L, T) for L in lens) * nkv * row
+    nbytes = kv_bytes + 2 * B * S * nh * D * 2
+    record(kernel, {**shape, "lengths": lens}, err, _time_ms(run),
+           _time_ms(plain), _time_ms(lib), _bound(nbytes, 4 * D * nh * visible),
+           main=main, variant=variant,
+           library="F.scaled_dot_product_attention over the "
+                   + ("gathered window" if block_tables is not None
+                      else "window"),
+           extra=_c_extra(torch, kc, run, lib, q, k, block_tables))
+
+
+def _verify_kernel_checks(torch, F, randn, record) -> None:
+    """Phase 2 at the verify shape of speculative decoding (spec_len 4:
+    8 slots of S = 5 rows, each at its own offset): C in its five
+    variants at the decode windows (T 2048, C-int8 4096), head_dim 64 and
+    128, lengths that leave a slot free and cross a 128-key tile (the
+    decode tile, S x g = 5); one GQA row (g = 4: S x g = 20 rows, the
+    chunk rows on wgmma); G at M 40 (8 x 5 rows: its wgmma path) on
+    Llama-2-7B's w_up and lm_head shapes. H's verify rows (B 8, S 5) run
+    with its other rows (``_lora_kernel_checks``)."""
+    import numpy as np
+
+    from picotron_tpu_torch.inference.kv_cache import quantize_kv
+    from picotron_tpu_torch.ops.kernels import decode_attention as kc
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 2)
+    S, T = VERIFY_S, 2048
+    # contiguous bf16, D 64 and 128, and the GQA row
+    for D, nh, nkv, variant in ((64, 32, 32, "verify"),
+                                (128, 32, 32, "verify_d128"),
+                                (64, 32, 8, "verify_gqa")):
+        q = randn(8, S, nh, D)
+        k, v = randn(8, T, nkv, D), randn(8, T, nkv, D)
+        lengths = torch.tensor(VERIFY_LENS, dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+        _c_verify_row(
+            torch, F, kc, kc.KERNEL, f"verify B=8 S={S} Hkv={nkv} D={D}",
+            {"B": 8, "S": S, "H": nh, "Hkv": nkv, "T": T, "D": D}, q, k, v,
+            lengths, scale, record, variant,
+            plain=lambda: kc.flash_decode_attention_plain(
+                q, k, v, lengths, scale), windows=(k, v))
+        del q, k, v
+    # C-int8 at Llama-2-7B's window and head dim, and at D 64
+    T8 = 4096
+    for D, variant in ((128, "verify"), (64, "verify_d64")):
+        q = randn(8, S, 32, D)
+        kq, ks = quantize_kv(randn(8, T8, 32, D))
+        vq, vs = quantize_kv(randn(8, T8, 32, D))
+        lengths = torch.tensor(VERIFY_LENS_INT8, dtype=torch.int32,
+                               device=dev)
+        scale = D ** -0.5
+        deq = [(t.float() * sc[..., None]) for t, sc in ((kq, ks), (vq, vs))]
+        _c_verify_row(
+            torch, F, kc, kc.KERNEL_INT8, f"verify B=8 S={S} D={D}",
+            {"B": 8, "S": S, "H": 32, "Hkv": 32, "T": T8, "D": D}, q, kq,
+            vq, lengths, scale, record, variant, k_scale=ks, v_scale=vs,
+            plain=lambda: kc.flash_decode_attention_int8_plain(
+                q, kq, vq, lengths, scale, ks, vs), windows=deq)
+        del q, kq, vq, ks, vs, deq
+        torch.cuda.empty_cache()
+    # the paged variants over a shuffled pool of 16-row pages
+    maxp = T // PAGE_LEN
+    for D, variant in ((64, "verify"), (128, "verify_d128")):
+        tables, P, need = _paged_table(np, rng, VERIFY_LENS, PAGE_LEN, maxp,
+                                       shared=128 // PAGE_LEN)
+        bt = torch.tensor(tables, device=dev)
+        lengths = torch.tensor(VERIFY_LENS, dtype=torch.int32, device=dev)
+        q = randn(8, S, 32, D)
+        k, v = randn(P, PAGE_LEN, 32, D), randn(P, PAGE_LEN, 32, D)
+        kq, ks = quantize_kv(randn(P, PAGE_LEN, 32, D))
+        vq, vs = quantize_kv(randn(P, PAGE_LEN, 32, D))
+        flags = rng.integers(0, 2, P).astype(np.int32)
+        flags[0] = 0
+        pq = torch.tensor(flags, device=dev)
+        scale = D ** -0.5
+        shape = {"B": 8, "S": S, "H": 32, "Hkv": 32, "D": D,
+                 "page_len": PAGE_LEN, "max_pages": maxp, "pool_pages": P}
+        gk, gv = kc.gather_window(k, bt), kc.gather_window(v, bt)
+        dk = (kc.gather_window(kq, bt).float()
+              * kc.gather_window(ks, bt)[..., None])
+        dv = (kc.gather_window(vq, bt).float()
+              * kc.gather_window(vs, bt)[..., None])
+        rowflag = pq[bt.long()].repeat_interleave(PAGE_LEN, 1)[..., None,
+                                                                None]
+        io = 8 * maxp * 4 + 8 * 4  # the tables and the lengths
+
+        def kv_bytes(row_bytes):  # each needed pool row read once
+            return io + sum(rows * 32 * row_bytes(pid)
+                            for pid, rows in need.items())
+
+        name = f"verify B=8 S={S} D={D} page_len={PAGE_LEN}"
+        _c_verify_row(
+            torch, F, kc, kc.KERNEL_PAGED, name, shape, q, k, v, lengths,
+            scale, record, variant, block_tables=bt,
+            plain=lambda: kc.flash_decode_attention_paged_plain(
+                q, k, v, lengths, scale, bt), windows=(gk, gv),
+            kv_bytes=kv_bytes(lambda pid: 2 * D * 2))
+        _c_verify_row(
+            torch, F, kc, kc.KERNEL_PAGED_INT8, name, shape, q, kq, vq,
+            lengths, scale, record, variant, k_scale=ks, v_scale=vs,
+            block_tables=bt,
+            plain=lambda: kc.flash_decode_attention_paged_int8_plain(
+                q, kq, vq, lengths, scale, ks, vs, bt), windows=(dk, dv),
+            kv_bytes=kv_bytes(lambda pid: 2 * (D + 4)))
+        _c_verify_row(
+            torch, F, kc, kc.KERNEL_MIXED, name, shape, q, k, v, lengths,
+            scale, record, variant, k_scale=ks, v_scale=vs, block_tables=bt,
+            k_quant=kq, v_quant=vq, page_quant=pq,
+            plain=lambda: kc.flash_decode_attention_mixed_plain(
+                q, k, v, lengths, scale, kq, vq, ks, vs, bt, pq),
+            windows=(torch.where(rowflag != 0, dk, gk.float()),
+                     torch.where(rowflag != 0, dv, gv.float())),
+            kv_bytes=kv_bytes(lambda pid: 2 * (D + 4) if flags[pid]
+                              else 2 * D * 2))
+        del q, k, v, kq, vq, ks, vs, gk, gv, dk, dv, rowflag
+        torch.cuda.empty_cache()
+    _counters_zero(torch, kc)
+    # G at the verify's 40 rows: Llama-2-7B's w_up and lm_head
+    from picotron_tpu_torch.ops.kernels import quant_matmul as kg
+
+    for N, variant in ((11008, "verify"), (32000, "verify_lm_head")):
+        _g_row(torch, randn, record, VERIFY_M, 4096, N, main=True,
+               variant=variant)
+    torch.cuda.synchronize()
+    for d, (_, counters) in kg.SCRATCH.items():
+        if bool(counters.any()):
+            raise AssertionError(f"G's split-K counters on {d} are not all "
+                                 f"zero: {int((counters != 0).sum())} set")
+    torch.cuda.empty_cache()
+
+
 def _launches_a_call(torch, name, fn, mark, per_call=1) -> tuple:
     """The device side of ``fn`` from a profiler trace of 10 calls, which
     must hold ``per_call`` device kernels a call, exactly one of whose
@@ -1058,6 +1274,7 @@ def _lora_kernel_checks(torch, randn, record) -> None:
 
     cases = ([(8, 1, K, N, H_DECODE_IDS, "bf16") for K, N in H_SMOL_SHAPES]
              + [(1, 512, K, N, (1,), "bf16") for K, N in H_SMOL_SHAPES]
+             + [(8, VERIFY_S, 2048, 2048, H_DECODE_IDS, "bf16")]
              + [(8, 1, K, N, H_DECODE_IDS, "bf16") for K, N in H_7B_SHAPES]
              + [(3, 37, 1000, 1500, (2, 0, 3), x_dt)
                 for x_dt in ("bf16", "fp32")])
@@ -1104,14 +1321,16 @@ def _lora_kernel_checks(torch, randn, record) -> None:
                  "plan": kh.plan(B, S, K, N, H_RANK)}
         decode = (B, S, K, N) == (8, 1, 2048, 2048)
         chunk = (B, S, K, N) == (1, 512, 2048, 2048)
+        verify = (B, S, K, N) == (8, VERIFY_S, 2048, 2048)
         run = lambda: kh.segmented_lora(x, a, b, ids)  # noqa: E731
         lib = lambda: torch.bmm(torch.bmm(xf, ag), bg)  # noqa: E731
         ms, per, names = _launches_a_call(torch, name, run, "lora_kernel")
         record(kh.KERNEL, {**shape, "mode": "residual"}, err, _time_ms(run),
                _time_ms(lambda: kh.lora_matmul_plain(x, a, b, ids)),
                _time_ms(lib), _bound(common + B * S * N * 4, flops),
-               main=decode or chunk,
-               variant="residual" if decode else "residual_chunk",
+               main=decode or chunk or verify,
+               variant=("residual" if decode else "residual_verify"
+                        if verify else "residual_chunk"),
                library="torch.bmm twice over a[ids], b[ids] gathered "
                        "outside the timing",
                extra={"null_rows_max_abs": null_max,
@@ -1140,7 +1359,9 @@ def _lora_kernel_checks(torch, randn, record) -> None:
                _time_ms(lib_f),
                _bound(common + 2 * live * S * N * base.element_size(),
                       flops),
-               main=decode or chunk, variant="chunk" if chunk else None,
+               main=decode or chunk or verify,
+               variant=("chunk" if chunk else "verify" if verify
+                        else None),
                library="torch.bmm twice over a[ids], b[ids] gathered "
                        "outside the timing, then the cast and the add",
                extra=extra)
@@ -1402,7 +1623,7 @@ def _requests(np, vocab: int, tag: str) -> list:
 
 
 def _serve_phase(torch, np, card, config: str, label: str, int8: bool,
-                 path_kernels, all_kernels) -> dict:
+                 path_kernels, all_kernels, keep=None) -> dict:
     """Phases 3, 4 and 7, one serving path: the model of ``config`` at full
     width and depth (random weights from a fixed seed; with ``int8``
     quantized on the card, int8 KV cache) behind InferenceEngine +
@@ -1414,7 +1635,9 @@ def _serve_phase(torch, np, card, config: str, label: str, int8: bool,
     forward of the same weights. Then the requests once more under the
     profiler (on the int8 path no library GEMM or attention kernel may
     appear), and the generate command line on the same config, on the
-    card by default (its launches are not part of the counted run)."""
+    card by default (its launches are not part of the counted run).
+    ``keep`` (a dict) receives the run's decode figures and greedy streams
+    for the speculation phase to print beside its own."""
     from picotron_tpu_torch.config import Config
     from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
     from picotron_tpu_torch.inference.engine import InferenceEngine
@@ -1498,6 +1721,11 @@ def _serve_phase(torch, np, card, config: str, label: str, int8: bool,
         "peak_mem_gib": peak_gib, "launches": launches,
         "greedy_max_logit_gap": max(gaps.values()),
         "greedy_logit_gaps": gaps}), flush=True)
+    if keep is not None:
+        keep.update(_decode_figures(batcher, len(requests)),
+                    streams={r.uid: results[r.uid].tokens
+                             for i, r in enumerate(requests)
+                             if i not in SAMPLED})
 
     names = _profile(torch, lambda: ContinuousBatcher(
         engine, params, seed=SEED).run(_requests(np, m.vocab_size, "p")),
@@ -1584,7 +1812,8 @@ def _live_page_mix(torch, batcher, hot_bf16: bool, path: str) -> dict:
     return mix
 
 
-def _paged_serve_phase(torch, np, card, paths, all_kernels) -> dict:
+def _paged_serve_phase(torch, np, card, paths, all_kernels,
+                       keep=None) -> dict:
     """Phase 5: SmolLM-1.7B on the paged layout, one run per entry of
     ``PAGED_RUNS`` on one set of weights. Every kernel's count is set to 0
     just before each run and read just after; returns those counts by
@@ -1592,7 +1821,8 @@ def _paged_serve_phase(torch, np, card, paths, all_kernels) -> dict:
     tokens, launch each kernel of its path (``paths``) and no other, find
     the expected prefix hits, cached tokens and copy-on-writes, and pass
     the greedy gate. The hot_bf16 run goes once more under the profiler;
-    then the generate command line serves the paged hot_bf16 layout."""
+    then the generate command line serves the paged hot_bf16 layout.
+    ``keep`` (a dict) receives each run's decode figures by path."""
     from picotron_tpu_torch.config import Config
     from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
     from picotron_tpu_torch.inference.engine import InferenceEngine
@@ -1694,6 +1924,8 @@ def _paged_serve_phase(torch, np, card, paths, all_kernels) -> dict:
             "launches": launches,
             "greedy_max_logit_gap": max(gaps.values()),
             "greedy_logit_gaps": gaps}), flush=True)
+        if keep is not None:
+            keep[path] = _decode_figures(batcher, len(requests))
         if policy == "hot_bf16":
             _profile(torch, lambda: ContinuousBatcher(
                 engine, params, seed=SEED).run(
@@ -1715,6 +1947,208 @@ def _paged_serve_phase(torch, np, card, paths, all_kernels) -> dict:
         raise AssertionError(f"generate CLI (paged hot_bf16) exited {rc}")
     print(f"generate CLI (paged hot_bf16) passed in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def _decode_figures(batcher, n_requests: int) -> dict:
+    """A serving run's decode figures: the tokens made after each request's
+    first (which its prefill makes) over the host wall time of the decode
+    and verify rounds, rounds per such token, and the accept rate (None
+    without speculation)."""
+    decode_tokens = batcher.generated_tokens - n_requests
+    return {"decode_tokens_per_s": decode_tokens / batcher.decode_seconds,
+            "dispatches_per_token": (batcher.decode_dispatches
+                                     / max(decode_tokens, 1)),
+            "accept_rate": batcher.accept_rate}
+
+
+# the speculation phase's runs: (path, kv_layout, drafter, controller).
+# "script" proposes the greedy streams of the serve_spec run (verify rows:
+# a position's logits come out the same at any row of a verify block, so
+# these drafts match unless the run's own greedy chain moves), gated at
+# ORACLE_MIN_ACCEPT; "script_off" proposes phase 3's spec-off streams
+# (decode blocks), whose bf16 rounding differs from a verify's, so a near
+# tie can part the two chains: its accept rate is printed, not gated
+SPEC_RUNS = (("serve_spec", "contiguous", "ngram", False),
+             ("serve_spec_learned", "contiguous", "learned", True),
+             ("serve_spec_paged", "paged", "ngram", False),
+             ("serve_spec_oracle", "contiguous", "script", False),
+             ("serve_spec_offscript", "contiguous", "script_off", False))
+ORACLE_MIN_ACCEPT = 0.5
+
+
+def _spec_serve_phase(torch, np, card, paths, all_kernels, spec_off) -> dict:
+    """Phase 10: speculative decoding (``spec_len`` 4) on phase 3's model,
+    one run per entry of ``SPEC_RUNS`` on one set of weights: contiguous
+    bf16 with the n-gram drafter, with the learned drafter and the
+    controller, paged bf16 with the n-gram drafter on phase 5's
+    shared-prefix traffic, and two scripted drafters over the six greedy
+    requests: one proposing the first run's greedy streams, one phase 3's
+    spec-off streams. Every kernel's count is set to 0 just before each
+    run and read just after; returns those counts by path. Each run must
+    give every request its full budget, launch each kernel of its path
+    (C's variant among them) and no other, and pass phase 3's greedy gate;
+    the paged run must find phase 5's prefix hits and cached tokens, and
+    the first scripted run accept more than ``ORACLE_MIN_ACCEPT`` of its
+    drafts. Each run's line sets its decode figures beside the spec-off
+    run's of the same call (``spec_off``); the scripted runs' lines also
+    say where each greedy stream of the first run first parts from phase
+    3's. Then the generate command line with ``--spec-len 4 --spec-ngram
+    3``, on the card by default."""
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.tools import generate
+
+    class ScriptDrafter:
+        """Proposes a request's script (prompt + phase 3's greedy stream)
+        from the position its history has reached."""
+
+        kind, stateful, needs_hidden = "ngram", True, False
+
+        def __init__(self, scripts):
+            self.scripts = scripts
+
+        def begin(self, ctx):
+            pass
+
+        def forget(self, ctx):
+            pass
+
+        def propose(self, history, n, ctx=None):
+            out = np.zeros(n, np.int32)
+            tail = self.scripts[ctx][len(history): len(history) + n]
+            out[: len(tail)] = tail
+            return out
+
+    base = Config.from_json(CONFIG)
+    m = base.model
+    params = llama.init_params(m, seed=SEED, device=torch.device(DEVICE))
+    by_path, spec_streams = {}, {}
+    for path, layout, drafter, controller in SPEC_RUNS:
+        cfg = Config.from_json(CONFIG)
+        inf = cfg.inference
+        inf.spec_len = SPEC_LEN
+        inf.drafter = "learned" if drafter == "learned" else "ngram"
+        inf.spec_controller.enabled = controller
+        off_path = "serve"
+        if layout == "paged":
+            inf.kv_layout, inf.kv_page_len = "paged", PAGE_LEN
+            inf.kv_num_pages, inf.prefix_cache = 0, True
+            off_path = "serve_paged"
+        cfg.validate()
+        t0 = time.perf_counter()
+        engine = InferenceEngine(cfg, DEVICE, slots=8, attend_impl="flash")
+        print(f"engine ({path}): {m.name} L={m.num_hidden_layers} "
+              f"H={m.hidden_size} window={engine.max_seq_len}, "
+              f"slots={engine.slots} spec_len={engine.spec_len} "
+              f"drafter={drafter} controller={controller} "
+              f"layout={engine.kv_layout} attend=flash, built in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        ContinuousBatcher(engine, params, seed=SEED).run(
+            [Request("warm", list(range(1, 25)), max_new_tokens=6)])
+        requests = (_paged_requests if layout == "paged" else _requests)(
+            np, m.vocab_size, "r")
+        script = parted = None
+        if drafter.startswith("script"):
+            requests = [r for r in requests if r.temperature == 0]
+            off_streams = spec_off[off_path]["streams"]
+            streams = off_streams if drafter == "script_off" else spec_streams
+            script = ScriptDrafter({r.uid: r.prompt + streams[r.uid]
+                                    for r in requests})
+            parted = {u: next((i for i, (a, b) in enumerate(
+                zip(spec_streams[u], off_streams[u])) if a != b), None)
+                for u in spec_streams}
+        batcher = ContinuousBatcher(engine, params, seed=SEED,
+                                    drafter=script)
+        torch.cuda.synchronize()
+        for kern in all_kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        results = batcher.run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in all_kernels}
+        launches = {kern.name: counts[kern.name] for kern in paths[path]}
+        by_path[path] = counts
+        if path == "serve_spec":
+            spec_streams = {r.uid: results[r.uid].tokens for r in requests
+                            if r.temperature == 0}
+        for r in requests:
+            res = results[r.uid]
+            if (len(res.tokens) != NEW_TOKENS
+                    or res.finish_reason != "length"
+                    or not all(0 <= t < m.vocab_size for t in res.tokens)):
+                raise AssertionError(f"{path} {r.uid}: {len(res.tokens)} "
+                                     f"tokens, {res.finish_reason}")
+        idle = [name for name, n in launches.items() if n == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on {path}: {idle}")
+        stray = {k: n for k, n in counts.items() if n and k not in launches}
+        if stray:
+            raise AssertionError(f"kernels of another path launched on "
+                                 f"{path}: {stray}")
+        st = batcher.stats()
+        if layout == "paged" and (st["prefix_hits"],
+                                  st["prefix_cached_tokens"]) != (
+                PREFIX_HITS, PREFIX_CACHED):
+            raise AssertionError(
+                f"{path}: prefix hits {st['prefix_hits']} (want "
+                f"{PREFIX_HITS}), cached tokens "
+                f"{st['prefix_cached_tokens']} (want {PREFIX_CACHED})")
+        if drafter == "script" and not (batcher.accept_rate or 0.0) \
+                > ORACLE_MIN_ACCEPT:
+            raise AssertionError(
+                f"{path}: accept rate {batcher.accept_rate} of drafts that "
+                f"are the spec-off greedy streams (want > "
+                f"{ORACLE_MIN_ACCEPT})")
+        gaps = {r.uid: _greedy_agrees(torch, llama, params, engine.cfg,
+                                      results[r.uid])
+                for r in requests if r.temperature == 0}
+        figures = _decode_figures(batcher, len(requests))
+        off = spec_off[off_path]
+        print(json.dumps({
+            "main_path": f"SmolLM-1.7B {path}", "card": card,
+            "requests": len(requests), "new_tokens_each": NEW_TOKENS,
+            "spec_len": SPEC_LEN, "drafter": drafter,
+            "controller": controller, "kv_layout": layout, "wall_s": wall,
+            **figures,
+            "draft_proposed": batcher.draft_proposed,
+            "draft_accepted": batcher.draft_accepted,
+            "spec_controller": st.get("spec_controller"),
+            "drafters_final": sorted({str(results[r.uid].drafter)
+                                      for r in requests}),
+            "decode_dispatches": batcher.decode_dispatches,
+            "spec_off": {"path": off_path,
+                         "decode_tokens_per_s": off["decode_tokens_per_s"],
+                         "dispatches_per_token":
+                             off["dispatches_per_token"]},
+            **({"serve_spec_parts_from_spec_off_at": parted}
+               if parted is not None else {}),
+            **({k: st[k] for k in ("prefix_hits", "prefix_cached_tokens",
+                                   "cow_copies")}
+               if layout == "paged" else {}),
+            "launches": launches,
+            "greedy_max_logit_gap": max(gaps.values()),
+            "greedy_logit_gaps": gaps}), flush=True)
+        del engine, batcher, results
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc = generate.main(["--config", CONFIG, "--random-init", "--seed", "1",
+                        "--prompt-ids", "5,276,388,5,276,388,5,276",
+                        "--prompt-ids", ",".join(str(i) for i in range(1, 41)),
+                        "--max-new-tokens", "16", "--slots", "2",
+                        "--attend-impl", "flash", "--spec-len", "4",
+                        "--spec-ngram", "3"])
+    if rc != 0:
+        raise AssertionError(f"generate CLI (spec) exited {rc}")
+    print(f"generate CLI (spec) passed in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     torch.cuda.empty_cache()
     return by_path
 
@@ -2454,9 +2888,11 @@ def main() -> int:
         return out
 
     # 3 and 4. the serving path and where its device time goes
+    # the spec-off figures and streams of phases 3 and 5, for phase 10
+    spec_off = {"serve": {}}
     by_path = {"serve": timed("serve", lambda: _serve_phase(
         torch, np, card, CONFIG, "SmolLM-1.7B serve", False,
-        SERVING_KERNELS, KERNELS))}
+        SERVING_KERNELS, KERNELS, keep=spec_off["serve"]))}
     # 5. the paged serving path, three page storages
     paths = {"serve": SERVING_KERNELS,
              "serve_paged": SERVING_PAGED_KERNELS,
@@ -2464,9 +2900,14 @@ def main() -> int:
              "serve_mixed": SERVING_MIXED_KERNELS,
              "serve_tenants": SERVING_TENANT_KERNELS,
              "serve_int8": SERVING_INT8_KERNELS,
-             "train": TRAINING_KERNELS}
+             "train": TRAINING_KERNELS,
+             "serve_spec": SERVING_KERNELS,
+             "serve_spec_learned": SERVING_KERNELS,
+             "serve_spec_paged": SERVING_PAGED_KERNELS,
+             "serve_spec_oracle": SERVING_KERNELS,
+             "serve_spec_offscript": SERVING_KERNELS}
     by_path.update(timed("serve_paged", lambda: _paged_serve_phase(
-        torch, np, card, paths, KERNELS)))
+        torch, np, card, paths, KERNELS, keep=spec_off)))
     # 6. several tenants in one batch: the multi-LoRA path through H
     by_path["serve_tenants"] = timed("serve_tenants", lambda: (
         _tenant_serve_phase(torch, np, card, SERVING_TENANT_KERNELS,
@@ -2482,8 +2923,12 @@ def main() -> int:
     # the loaded weights (bf16, then int8)
     by_path["checkpoint"] = timed("checkpoint", lambda: _checkpoint_phase(
         torch, card, CHECKPOINT_KERNELS, KERNELS))
+    # 10. speculative decoding on phase 3's model: n-gram, learned with the
+    # controller, paged, and drafts that are phase 3's own streams
+    by_path.update(timed("serve_spec", lambda: _spec_serve_phase(
+        torch, np, card, paths, KERNELS, spec_off)))
 
-    # 10. the closing lines: each kernel's launches on its own path (the
+    # 11. the closing lines: each kernel's launches on its own path (the
     # first path that runs it: serving for A, B, C; each paged run for its
     # variant of C; the tenancy run for H; int8 serving for C-int8 and G;
     # training for D, E, F), and on each path
@@ -2500,7 +2945,9 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape", *DEVICE_KEYS, "lse", "d128",
                     "chunk", "residual", "residual_chunk", "prefill",
-                    "lm_head", "train", "h4096")}}
+                    "lm_head", "train", "h4096", "verify", "verify_d128",
+                    "verify_d64", "verify_gqa", "verify_lm_head",
+                    "residual_verify")}}
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,7 @@ and ``tests/test_torch_config.py`` holds the port to it:
 
 - declared by a section below and read;
 - refused at load when set to a value the port does not behave as
-  (``REFUSED_AT_LOAD``): disaggregation roles, speculation, overlap, mixed
-  dispatch, on-device sampling, dp sharding, the serving chaos hooks
+  (``REFUSED_AT_LOAD``): disaggregation roles, overlap, mixed dispatch, on-device sampling, dp sharding, the serving chaos hooks
   (``resilience.chaos_dispatch_*``, ``chaos_latency_round``,
   ``chaos_poison_logits_round``) and ``inference.key_schedule: "slot"``
   (the port draws sampled tokens from one generator in batch order, a
@@ -211,6 +210,33 @@ class ObsConfig:
 
 
 @dataclass
+class SpecControllerConfig:
+    """The per-slot speculation policy loop
+    (``inference/speculative.py::SpecController``): it reads each slot's
+    draft counts and the batcher's per-kind dispatch latencies and sets
+    every slot's draft length (and drafter) for the next round. The JAX
+    package's fields and defaults."""
+
+    # off unless inference.spec_len > 0 (validate refuses it otherwise)
+    enabled: bool = False
+    # windowed accept rate at or above which a slot doubles its draft
+    # length toward inference.spec_len
+    target: float = 0.5
+    # windowed accept rate below which a slot halves it toward 0; the
+    # [low, target) band holds
+    low: float = 0.25
+    # draft tokens a slot proposes between two evaluations
+    window: int = 32
+    # consecutive evaluations in one direction before a ramp applies
+    hysteresis: int = 2
+    # rounds a slot sits at draft length 0 before a 1-token probe
+    cooloff: int = 64
+    # dispatch-latency samples per kind before the measured cost of a
+    # verify against a decode block joins the decision
+    latency_min_samples: int = 16
+
+
+@dataclass
 class TenancyConfig:
     """Multi-tenant serving (``inference/tenancy.py``): named tenants, each
     an optional LoRA adapter over the shared (bf16 or int8) base, a
@@ -272,6 +298,24 @@ class InferenceConfig:
     # lands in both representations, so a page flips with no rewrite.
     # Excludes kv_cache_dtype "int8".
     kv_page_policy: str = "uniform"
+    # Speculative decoding (inference/speculative.py, engine.verify): draft
+    # tokens proposed per slot per dispatch; one verify pass scores all
+    # spec_len + 1 positions and emits 1 to spec_len + 1 tokens a slot.
+    # 0 = off: the batcher drives decode_block.
+    spec_len: int = 0
+    # Longest suffix n-gram the prompt-lookup drafter matches against the
+    # slot's own history (tried spec_ngram down to 1).
+    spec_ngram: int = 3
+    # "ngram" = the prompt-lookup drafter on the host; "learned" = the
+    # EAGLE-style head over the target's last hidden state, sharing its
+    # embedding, final norm and LM head (the engine then returns that
+    # hidden state from every dispatch: return_hidden).
+    drafter: str = "ngram"
+    # Most recent history tokens the n-gram match may land in; 0 = all.
+    spec_history_window: int = 0
+    # Per-slot draft length tuning (SpecControllerConfig).
+    spec_controller: SpecControllerConfig = field(
+        default_factory=SpecControllerConfig)
     # Multi-tenant serving (TenancyConfig).
     tenancy: TenancyConfig = field(default_factory=TenancyConfig)
     # The JAX engine's dense rebuild after a failed flash dispatch. The
@@ -280,8 +324,14 @@ class InferenceConfig:
     attend_fallback: bool = False
 
     def __post_init__(self):
-        # from_dict hands the nested section through as a dict (unknown
+        # from_dict hands the nested sections through as dicts (unknown
         # keys ignored, as Config.from_dict ignores them)
+        if isinstance(self.spec_controller, dict):
+            known = {f.name for f in
+                     dataclasses.fields(SpecControllerConfig)}
+            self.spec_controller = SpecControllerConfig(
+                **{k: v for k, v in self.spec_controller.items()
+                   if k in known})
         if isinstance(self.tenancy, dict):
             known = {f.name for f in dataclasses.fields(TenancyConfig)}
             self.tenancy = TenancyConfig(
@@ -297,7 +347,6 @@ class InferenceConfig:
 # token of a round from one torch.Generator in batch order).
 REFUSED_AT_LOAD = {
     ("inference", "role"): ("both",),
-    ("inference", "spec_len"): (0,),
     ("inference", "dp_size"): (1,),
     ("inference", "overlap"): (False,),
     ("inference", "mixed_dispatch"): (False,),
@@ -317,7 +366,6 @@ _UNTIL_CP = "inert while cp_size = 1 (check_trainable)"
 _SYNTHETIC = "inert while the dataset is synthetic (check_trainable)"
 _ONE_HOST = ("multi-host consensus; inert in the port's one process "
              "(check_trainable)")
-_NO_SPEC = "inert while inference.spec_len is 0 (refused otherwise)"
 INERT_FIELDS = {
     ("distributed", "pp_engine"): _UNTIL_PP,
     ("distributed", "pp_interleave"): _UNTIL_PP,
@@ -377,10 +425,6 @@ INERT_FIELDS = {
     ("resilience", "chaos_stall_rank_s"): "inert while "
                                           "chaos_stall_rank_at_step is "
                                           "empty (check_trainable)",
-    ("inference", "spec_ngram"): _NO_SPEC,
-    ("inference", "drafter"): _NO_SPEC,
-    ("inference", "spec_history_window"): _NO_SPEC,
-    ("inference", "spec_controller"): _NO_SPEC,
     ("obs", "enabled"): "switches the JAX package's counters and spans "
                         "(obs/*), which the port has none of yet",
     ("obs", "span_ring"): "sizes the JAX package's span ring, which the "
@@ -569,6 +613,51 @@ class Config:
             raise ValueError(
                 f"unknown inference.kv_cache_dtype {inf.kv_cache_dtype!r} "
                 "(auto|int8)")
+        if inf.spec_len < 0:
+            raise ValueError("inference.spec_len must be >= 0 (0 = off)")
+        if inf.spec_ngram < 1:
+            raise ValueError("inference.spec_ngram must be >= 1")
+        if inf.drafter not in ("ngram", "learned"):
+            raise ValueError(
+                f"unknown inference.drafter {inf.drafter!r} (ngram|learned)"
+                " — 'ngram' is the model-free prompt-lookup drafter, "
+                "'learned' the EAGLE-style head over the target's last "
+                "hidden state")
+        if inf.spec_history_window < 0:
+            raise ValueError(
+                "inference.spec_history_window must be >= 0 (0 = "
+                "unbounded match scan)")
+        sc = inf.spec_controller
+        if not isinstance(sc.enabled, bool):
+            raise ValueError(
+                f"inference.spec_controller.enabled must be a JSON "
+                f"boolean, got {sc.enabled!r}")
+        if sc.enabled and inf.spec_len < 1:
+            raise ValueError(
+                "inference.spec_controller.enabled requires "
+                "inference.spec_len > 0 (spec_len is the controller's "
+                "per-slot ceiling; there is no speculation to tune at 0)"
+                " — set inference.spec_len, or disable the controller")
+        if not 0.0 < sc.target <= 1.0:
+            raise ValueError(
+                "inference.spec_controller.target must be in (0, 1]")
+        if not 0.0 <= sc.low <= sc.target:
+            raise ValueError(
+                "inference.spec_controller.low must satisfy 0 <= low <= "
+                f"target (got low={sc.low}, target={sc.target}) — the "
+                "[low, target) band is the hysteresis hold region")
+        if sc.window < 1:
+            raise ValueError("inference.spec_controller.window must be >= 1")
+        if sc.hysteresis < 1:
+            raise ValueError(
+                "inference.spec_controller.hysteresis must be >= 1")
+        if sc.cooloff < 0:
+            raise ValueError(
+                "inference.spec_controller.cooloff must be >= 0 rounds")
+        if sc.latency_min_samples < 1:
+            raise ValueError(
+                "inference.spec_controller.latency_min_samples must be "
+                ">= 1")
         if inf.kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"unknown inference.kv_layout {inf.kv_layout!r} "

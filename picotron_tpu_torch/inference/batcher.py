@@ -11,7 +11,9 @@ Each ``step()``:
   decode: one ``decode_block`` advances every occupied slot by up to
           ``engine.decode_block_len`` tokens, with per-slot sampling
           parameters, EOS ids and budgets, and the stop state on the
-          device;
+          device; on a speculative engine (``spec_len > 0``) one draft-
+          verify round instead (``_spec_round``): the drafters propose,
+          one ``engine.verify`` emits 1 to ``spec_len + 1`` tokens a slot;
   retire: slots that hit EOS or their budget release their cache slot.
 
 Admission picks the highest priority class first, FIFO within a class,
@@ -31,13 +33,23 @@ is shed at the door (finish reason "shed", no tokens), and under passing
 pressure the queue waits for live slots to return pages; the prefill is
 ``engine.prefill_paged``, which shares the longest cached prompt prefix.
 
+Speculation: the drafter (``inference.drafter``: the prompt-lookup
+``NgramDrafter``, or the ``LearnedDrafter`` over the engine's hidden rows
+with the n-gram drafter beside it; or one passed in) proposes each
+occupied slot's draft; with ``inference.spec_controller.enabled`` a
+``SpecController`` sets each slot's draft length and drafter every round
+from its accept counts and the dispatch latencies this batcher tallies
+(``latency``), and when it has turned every occupied slot off the round
+is a decode block. ``draft_proposed``, ``draft_accepted`` and
+``accept_rate`` count the drafts.
+
 Free slots still ride through the decode block (fixed shapes); they carry
 a zero budget at length 0 and their outputs are ignored. One
 ``torch.Generator`` seeded from ``seed`` draws every sampled token.
 
 Not ported yet: request deadlines, dispatch retry and slot isolation,
-speculation, overlap, the mixed prefill lane and the ``picotron_tenant_*``
-metric families.
+overlap, the mixed prefill lane and the ``picotron_tenant_*`` and
+``picotron_spec_*`` metric families.
 """
 
 from __future__ import annotations
@@ -51,6 +63,12 @@ import numpy as np
 import torch
 
 from picotron_tpu_torch.inference import sampling
+from picotron_tpu_torch.inference.speculative import (
+    DispatchLatency,
+    LearnedDrafter,
+    NgramDrafter,
+    SpecController,
+)
 from picotron_tpu_torch.inference.kv_cache import cache_bytes
 from picotron_tpu_torch.models.llama import param_bytes
 
@@ -91,7 +109,11 @@ class GenerationResult:
     finish_reason: str  # "eos" | "length" | "shed"
     queue_wait_s: Optional[float] = None  # submit -> admit
     ttft_s: Optional[float] = None  # submit -> first token
-    dispatches: int = 0  # decode blocks this request's slot took part in
+    dispatches: int = 0  # decode or verify rounds its slot took part in
+    # speculative engines: the slot's draft length and drafter at
+    # retirement (the controller's last choice, else the static ones)
+    spec_len_final: Optional[int] = None
+    drafter: Optional[str] = None
 
 
 @dataclass
@@ -112,14 +134,48 @@ class ContinuousBatcher:
     >>> results = b.run()           # {"a": GenerationResult(...)}
 
     ``params`` must live on the engine's device. One batcher owns one
-    cache.
+    cache. ``drafter`` replaces the configured drafter of a speculative
+    engine (a scripted one in tests).
     """
 
-    def __init__(self, engine, params, seed: int = 0, clock=time.monotonic):
+    def __init__(self, engine, params, seed: int = 0, clock=time.monotonic,
+                 drafter=None):
         self.engine = engine
         self.params = params
         self._clock = clock
         self._gen = torch.Generator(device=engine.device).manual_seed(seed)
+        inf = engine.cfg.inference
+        if drafter is None and engine.spec_len > 0:
+            if engine.drafter_kind == "learned":
+                drafter = LearnedDrafter(engine, params)
+            else:
+                drafter = NgramDrafter(engine.spec_ngram,
+                                       window=inf.spec_history_window)
+        self.drafter = drafter
+        # the drafters the controller switches between, the primary first:
+        # a learned primary carries the n-gram drafter beside it
+        self._drafters: dict = {}
+        if engine.spec_len > 0 and drafter is not None:
+            self._drafters[drafter.kind] = drafter
+            if drafter.kind == "learned":
+                self._drafters["ngram"] = NgramDrafter(
+                    engine.spec_ngram, window=inf.spec_history_window)
+        # wall time of each dispatch kind: the controller's cost input
+        self.latency = DispatchLatency()
+        self.controller = None
+        if engine.spec_len > 0 and inf.spec_controller.enabled:
+            self.controller = SpecController(
+                inf.spec_controller, self.latency, slots=engine.slots,
+                max_spec_len=engine.spec_len,
+                block_len=engine.decode_block_len,
+                kinds=tuple(self._drafters))
+        # the learned drafter's input: each slot's last hidden state, kept
+        # on the device between dispatches
+        self._hidden = None
+        if engine.return_hidden:
+            self._hidden = torch.zeros(
+                (engine.slots, engine.cfg.model.hidden_size),
+                dtype=engine._dt, device=engine.device)
         self._cache = engine.init_cache()
         n = engine.slots
         self._slots: list = [None] * n
@@ -143,8 +199,31 @@ class ContinuousBatcher:
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.generated_tokens = 0
-        # host wall time of decode blocks, results read back included
+        # draft tokens proposed, and those that entered an emitted stream
+        self.draft_proposed = 0
+        self.draft_accepted = 0
+        # host wall time of the decode and draft-verify rounds, results
+        # read back included
         self.decode_seconds = 0.0
+
+    @property
+    def accept_rate(self) -> Optional[float]:
+        """Fraction of proposed draft tokens that were emitted (None before
+        any draft)."""
+        if not self.draft_proposed:
+            return None
+        return self.draft_accepted / self.draft_proposed
+
+    def spec_len_effective(self) -> float:
+        """Mean draft length over the occupied slots: the controller's
+        choices, or ``engine.spec_len`` without one (0.0 with nothing
+        parked or speculation off)."""
+        occ = [i for i, s in enumerate(self._slots) if s is not None]
+        if self.engine.spec_len <= 0 or not occ:
+            return 0.0
+        if self.controller is not None:
+            return self.controller.spec_len_mean(occ)
+        return float(self.engine.spec_len)
 
     # ---- queue surface ----------------------------------------------------
 
@@ -188,10 +267,14 @@ class ContinuousBatcher:
             req.max_new_tokens, self.engine.max_seq_len - len(req.prompt)))
 
     def page_commitment(self, req: Request) -> int:
-        """Worst-case pool pages ``req`` can occupy: its commitment plus the
-        one row a stopped slot keeps rewriting, in pages, at most a slot's
-        window. Prefix hits only make the real footprint smaller."""
-        return min(self.paged.pages_for(self.commitment(req) + 1),
+        """Worst-case pool pages ``req`` can occupy: its commitment plus
+        the rows a dispatch can write past it (the one row a stopped slot
+        keeps rewriting, or a verify's ``spec_len`` draft rows), in pages,
+        at most a slot's window. Prefix hits only make the real footprint
+        smaller."""
+        overshoot = (self.engine.spec_len if self.engine.spec_len > 0
+                     else 1)
+        return min(self.paged.pages_for(self.commitment(req) + overshoot),
                    self.paged.max_pages)
 
     def page_load(self) -> int:
@@ -275,7 +358,10 @@ class ContinuousBatcher:
         occupancy and the prefix cache's counters too; with tenants, each
         tenant's tally under ``"tenants"`` (requests admitted, tokens
         emitted, requests shed, admissions the prefill gate deferred or
-        let through on TTFT pressure)."""
+        let through on TTFT pressure). A
+        speculative engine adds ``spec_len_effective`` (and, once a draft
+        was proposed, ``accept_rate``; with a controller its decisions
+        under ``spec_controller``)."""
         d = {
             "decode_dispatches": self.decode_dispatches,
             "prefill_dispatches": self.prefill_dispatches,
@@ -289,6 +375,12 @@ class ContinuousBatcher:
                 "torch."),
             "cache_bytes": cache_bytes(self._cache),
         }
+        if self.draft_proposed:
+            d["accept_rate"] = self.accept_rate
+        if self.engine.spec_len > 0:
+            d["spec_len_effective"] = self.spec_len_effective()
+            if self.controller is not None:
+                d["spec_controller"] = self.controller.decisions
         if self.paged is not None:
             d.update(self.paged.stats())
         if self._tenant_stats:
@@ -314,10 +406,22 @@ class ContinuousBatcher:
 
     def _finish(self, i: int, reason: str) -> None:
         s = self._slots[i]
+        spec_len = drafter_kind = None
+        if self.engine.spec_len > 0:
+            if self.controller is not None:
+                spec_len = int(self.controller.lens()[i])
+                drafter_kind = self.controller.drafter_kinds()[i]
+            else:
+                spec_len = self.engine.spec_len
+                drafter_kind = (self.drafter.kind if self.drafter is not None
+                                else None)
         self._results[s.req.uid] = GenerationResult(
             s.req.uid, list(s.req.prompt), list(s.generated), reason,
             queue_wait_s=s.queue_wait_s, ttft_s=s.ttft_s,
-            dispatches=s.dispatches)
+            dispatches=s.dispatches, spec_len_final=spec_len,
+            drafter=drafter_kind)
+        for d in self._drafters.values():
+            d.forget(s.req.uid)
         self._slots[i] = None
         self._cache = self.engine.release(self._cache, i)
         self._last_tok[i] = 0
@@ -355,26 +459,35 @@ class ContinuousBatcher:
 
     def _prefill_into(self, req: Request, i: int) -> torch.Tensor:
         """Prefill ``req`` into slot ``i`` (one-shot or chunked) under its
-        adapter slot; return its last-token logits [1, V]."""
+        adapter slot; return its last-token logits [1, V]. On a
+        ``return_hidden`` engine the prompt's last hidden state seeds the
+        slot's drafting row."""
         eng = self.engine
         # an engine without a pack takes no ids and runs as without tenancy
         adapter = (int(req.adapter_slot) if eng.adapters is not None
                    else None)
         if self.paged is not None:
             self.paged.priced[i] = self.page_commitment(req)
-            self._cache, logits, n, _ = eng.prefill_paged(
+            out = eng.prefill_paged(
                 self.params, self._cache, req.prompt, i, adapter_id=adapter,
                 cache_salt=req.tenant)
+            self._cache, logits, n = out[:3]
+            hidden = out[4:]
             self.prefill_dispatches += n
-            return logits
-        if len(req.prompt) > eng.prefill_chunk:
-            self._cache, logits = eng.prefill_chunked(
+        elif len(req.prompt) > eng.prefill_chunk:
+            out = eng.prefill_chunked(
                 self.params, self._cache, req.prompt, i, adapter_id=adapter)
+            self._cache, logits = out[:2]
+            hidden = out[2:]
             self.prefill_dispatches += -(-len(req.prompt) // eng.prefill_chunk)
-            return logits
-        kv, logits = eng.prefill(self.params, req.prompt, adapter_id=adapter)
-        self._cache = eng.insert(self._cache, kv, i, len(req.prompt))
-        self.prefill_dispatches += 1
+        else:
+            out = eng.prefill(self.params, req.prompt, adapter_id=adapter)
+            kv, logits = out[:2]
+            hidden = out[2:]
+            self._cache = eng.insert(self._cache, kv, i, len(req.prompt))
+            self.prefill_dispatches += 1
+        if self._hidden is not None and hidden:
+            self._hidden[i] = hidden[0][0]
         return logits
 
     def _admit(self) -> None:
@@ -396,6 +509,14 @@ class ContinuousBatcher:
             self._slots[i] = slot
             self._adapter[i] = (req.adapter_slot
                                 if self.engine.adapters is not None else 0)
+            # a new request: the controller restarts the slot's policy and
+            # stateful drafters drop the previous occupant's index
+            if self.controller is not None:
+                self.controller.reset(i, tpot_slo_s=(
+                    req.tpot_slo_ms / 1000.0
+                    if req.tpot_slo_ms is not None else None))
+            for d in self._drafters.values():
+                d.begin(req.uid)
             self._temp[i] = req.temperature
             self._top_k[i] = req.top_k
             self._top_p[i] = req.top_p
@@ -470,29 +591,152 @@ class ContinuousBatcher:
             return req
         return None
 
+    def _plan_spec(self) -> tuple:
+        """Each slot's draft length and drafter kind for the next round, or
+        (None, None) when the controller has turned every occupied slot
+        off: the round is then a decode block."""
+        n = len(self._slots)
+        lens = np.zeros(n, np.int32)
+        kinds: list = [None] * n
+        occupied = [i for i, s in enumerate(self._slots) if s is not None]
+        if self.controller is not None:
+            clens = self.controller.lens()
+            ckinds = self.controller.drafter_kinds()
+            for i in occupied:
+                lens[i] = clens[i]
+                kinds[i] = ckinds[i]
+            if occupied and not lens.any():
+                return None, None
+        else:
+            for i in occupied:
+                lens[i] = self.engine.spec_len
+                kinds[i] = self.drafter.kind
+        return lens, kinds
+
+    def _merge_hidden(self, hid, counts) -> None:
+        """Fold one dispatch's hidden rows into the slots' drafting rows:
+        only slots that emitted tokens move."""
+        if self._hidden is not None and hid is not None:
+            moved = torch.as_tensor(np.asarray(counts) > 0).to(hid.device)
+            self._hidden = torch.where(moved[:, None], hid, self._hidden)
+
+    def _draft(self, lens, kinds) -> np.ndarray:
+        """The [slots, spec_len + 1] verify block: column 0 each slot's
+        last token, then ``lens[i]`` drafts of its drafter (zeros past
+        them). Learned slots draft together in one pass over the hidden
+        rows, timed as a "draft" dispatch; host drafters propose per slot
+        from its history."""
+        g = self.engine.spec_len
+        tokens = np.zeros((len(self._slots), g + 1), np.int32)
+        learned = [i for i, s in enumerate(self._slots)
+                   if s is not None and kinds[i] == "learned"
+                   and lens[i] > 0]
+        batch = None
+        if learned:
+            t0 = self._clock()
+            batch = self._drafters["learned"].propose_batch(
+                self._last_tok, self._hidden, g)
+            self.latency.observe("draft", self._clock() - t0)
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            tokens[i, 0] = self._last_tok[i]
+            gi = int(lens[i])
+            if gi == 0:
+                continue  # this slot rides the verify with no draft
+            if kinds[i] == "learned":
+                tokens[i, 1: 1 + gi] = batch[i, :gi]
+                continue
+            d = self._drafters.get(kinds[i], self.drafter)
+            hist = np.asarray(list(s.req.prompt) + s.generated, np.int32)
+            if getattr(d, "stateful", False):
+                tokens[i, 1: 1 + gi] = d.propose(hist, gi, ctx=s.req.uid)
+            else:
+                tokens[i, 1: 1 + gi] = d.propose(hist, gi)
+        return tokens
+
+    def _spec_account(self, lens, accepted, budget) -> None:
+        """One verify round's draft counts: the lifetime totals and the
+        controller's per-slot record."""
+        for i, s in enumerate(self._slots):
+            if s is None or budget[i] <= 0 or lens[i] == 0:
+                continue
+            gi, acc = int(lens[i]), int(accepted[i])
+            self.draft_proposed += gi
+            self.draft_accepted += acc
+            if self.controller is not None:
+                self.controller.record(i, gi, acc)
+
+    def _spec_round(self, budget, lens, kinds) -> tuple:
+        """One draft-verify round: the drafts (``_draft``), one
+        ``engine.verify`` dispatch over them, ragged at ``lens``, and the
+        draft counts. Returns (emitted [slots, spec_len + 1], counts
+        [slots]) on the host."""
+        t0 = self._clock()
+        tokens = self._draft(lens, kinds)
+        t1 = self._clock()
+        out = self.engine.verify(
+            self.params, self._cache, tokens, self._gen, self._eos, budget,
+            self._temp, self._top_k, self._top_p, draft_len=lens,
+            adapter_ids=(self._adapter if self.engine.adapters is not None
+                         else None))
+        self._cache, emitted, counts, accepted = out[:4]
+        emitted, counts = emitted.cpu().numpy(), counts.cpu().numpy()
+        accepted = accepted.cpu().numpy()
+        self._merge_hidden(out[4] if len(out) > 4 else None, counts)
+        t2 = self._clock()
+        self.latency.observe("verify", t2 - t1)
+        self.decode_seconds += t2 - t0
+        self._spec_account(lens, accepted, budget)
+        return emitted, counts
+
+    def _decode_round(self, budget) -> tuple:
+        """One ``decode_block`` dispatch. Returns (tokens [slots, block],
+        counts [slots]) on the host."""
+        t0 = self._clock()
+        out = self.engine.decode_block(
+            self.params, self._cache, self._last_tok, self._gen, self._eos,
+            budget, self._temp, self._top_k, self._top_p,
+            adapter_ids=(self._adapter if self.engine.adapters is not None
+                         else None))
+        self._cache, toks, counts = out[:3]
+        toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
+        self._merge_hidden(out[3] if len(out) > 3 else None, counts)
+        dt = self._clock() - t0
+        self.latency.observe("decode", dt)
+        self.decode_seconds += dt
+        return toks, counts
+
     def step(self) -> None:
         """Admit waiting requests into free slots, then advance every
-        occupied slot by one decode block and retire the finished ones."""
+        occupied slot by one decode block (or, on a speculative engine,
+        one draft-verify round, ragged under the controller, or a decode
+        block once the controller has turned every occupied slot off) and
+        retire the finished ones."""
         self._admit()
         if not any(s is not None for s in self._slots):
             return
         for i, s in enumerate(self._slots):
             self._budget[i] = self._remaining(i) if s is not None else 0
         budget = self._budget.copy()
-        t0 = self._clock()
-        self._cache, toks, counts = self.engine.decode_block(
-            self.params, self._cache, self._last_tok, self._gen, self._eos,
-            budget, self._temp, self._top_k, self._top_p,
-            adapter_ids=(self._adapter if self.engine.adapters is not None
-                         else None))
-        toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
-        self.decode_seconds += self._clock() - t0
+        lens = kinds = None
+        if self.engine.spec_len > 0:
+            lens, kinds = self._plan_spec()
+        if lens is not None:
+            toks, counts = self._spec_round(budget, lens, kinds)
+        else:
+            toks, counts = self._decode_round(budget)
         self.decode_dispatches += 1
+        for i, s in enumerate(self._slots):
+            if s is not None and budget[i] > 0:
+                s.dispatches += 1
+                if self.controller is not None:
+                    # after this round's counts landed; idle slots advance
+                    # their cooloff
+                    self.controller.after_round(i)
         for i, s in enumerate(self._slots):
             if s is None:
                 continue
-            if budget[i] > 0:
-                s.dispatches += 1
             # the device already stopped this row at EOS/budget; walking
             # the produced prefix applies the same rules host-side
             for t in toks[i, : counts[i]]:

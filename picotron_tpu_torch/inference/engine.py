@@ -17,6 +17,13 @@ Port of the serving subset of ``picotron_tpu/inference/engine.py``:
 - ``prefill_paged(params, cache, prompt, slot)``: the paged layout's
   admission: share the longest radix-cached prefix of the prompt and
   prefill only the rest.
+- ``verify(...)``: the speculative draft-verify pass (``spec_len > 0``):
+  each slot's last token and its ``spec_len`` drafts in one model pass
+  over [slots, spec_len + 1] rows, the acceptance rule, EOS and budget,
+  and the rewind of the lengths to what was emitted.
+  ``make_draft_program`` is the learned drafter's pass over the target's
+  last hidden state; with ``return_hidden`` every dispatch also returns
+  that state, each slot's row before the final norm.
 
 The cache has two layouts: ``kv_layout`` "contiguous" (a strip per slot,
 ``kv_cache.py``) or "paged" (a page pool behind block tables, with radix
@@ -64,7 +71,9 @@ class InferenceEngine:
     ``slots`` is the decode batch width; ``max_seq_len`` bounds prompt +
     generated tokens per slot (default: ``max_position_embeddings``).
     ``decode_block_len`` / ``prefill_chunk`` / ``attend_impl`` /
-    ``weight_dtype`` default from ``cfg.inference``; keyword overrides win.
+    ``weight_dtype`` / ``spec_len`` / ``spec_ngram`` / ``drafter`` default
+    from ``cfg.inference``; keyword overrides win. ``return_hidden``
+    defaults to on for a speculative engine with the learned drafter.
     ``cache_dtype`` ("int8", ``torch.int8``, or a full-precision torch
     dtype) wins over ``inference.kv_cache_dtype`` when given, so a caller
     can turn cache quantization off as well as on. The KV layout and its
@@ -82,7 +91,11 @@ class InferenceEngine:
                  prefill_chunk: int | None = None,
                  attend_impl: str | None = None,
                  weight_dtype: str | None = None,
-                 cache_dtype=None, adapters=None):
+                 cache_dtype=None, adapters=None,
+                 spec_len: int | None = None,
+                 spec_ngram: int | None = None,
+                 drafter: str | None = None,
+                 return_hidden: bool | None = None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
         self.cfg.check_servable()
         self.device = resolve_device(device)
@@ -102,6 +115,28 @@ class InferenceEngine:
             raise ValueError("prefill_chunk must be >= 1")
         # a chunk wider than the cache window could never be written
         self.prefill_chunk = min(self.prefill_chunk, self.max_seq_len)
+        self.spec_len = int(spec_len if spec_len is not None
+                            else inf.spec_len)
+        if self.spec_len < 0:
+            raise ValueError("spec_len must be >= 0 (0 = off)")
+        if self.spec_len >= self.max_seq_len:
+            raise ValueError(
+                f"spec_len {self.spec_len} leaves no room in a window of "
+                f"{self.max_seq_len} rows (a verify writes spec_len + 1)")
+        self.spec_ngram = int(spec_ngram if spec_ngram is not None
+                              else inf.spec_ngram)
+        if self.spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1")
+        if drafter is not None:
+            if drafter not in ("ngram", "learned"):
+                raise ValueError(
+                    f"unknown drafter {drafter!r} (ngram|learned)")
+            inf.drafter = drafter
+        self.drafter_kind = inf.drafter
+        if return_hidden is None:
+            return_hidden = (self.spec_len > 0
+                             and self.drafter_kind == "learned")
+        self.return_hidden = bool(return_hidden)
         if attend_impl is not None:
             if attend_impl not in ("dense", "flash"):
                 raise ValueError(
@@ -324,7 +359,9 @@ class InferenceEngine:
         """One prompt through the full-sequence model, under adapter slot
         ``adapter_id`` on an engine with a pack. Returns (kv blocks in
         cache storage form, ``{"k", "v"[, "k_scale", "v_scale"]}: [L, 1,
-        S_bucket, Hkv(, D)]``, last-token logits [1, V] fp32)."""
+        S_bucket, Hkv(, D)]``, last-token logits [1, V] fp32); a
+        ``return_hidden`` engine appends the last token's hidden state
+        before the final norm [1, H]."""
         params = self._bind_one(params, adapter_id)
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
@@ -346,16 +383,19 @@ class InferenceEngine:
         # row before the LM-head matmul
         h_last = h[:, ids.size - 1: ids.size]
         last = llama.head_logits(params, h_last, cfg)[:, 0].float()
-        return self._pack_kv(torch.stack(ks), torch.stack(vs)), last
+        out = (self._pack_kv(torch.stack(ks), torch.stack(vs)), last)
+        return out + (h_last[:, 0],) if self.return_hidden else out
 
     def _layers_over_cache(self, params, cache, h, cos, sin, pos,
-                           slots=slice(None)):
+                           slots=slice(None), draft_valid=None):
         """Run the layer stack on ``h`` against the cache rows of ``slots``,
         writing each layer's new K/V from ``pos`` on (an int8 cache's
         chunk is written first, then attended in its dequantized form, as
         in the JAX package). A pool has no slot axis: a paged layer cache
         is each layer's whole pool with the block-table rows of ``slots``
-        (and the ``hot_bf16`` flags, which have no layer axis)."""
+        (and the ``hot_bf16`` flags, which have no layer axis).
+        ``draft_valid`` [B] (the ragged verify's write mask) rides into
+        every layer's dict."""
         paged = self.paged is not None
         for i in range(self.cfg.model.num_hidden_layers):
             if paged:
@@ -367,6 +407,8 @@ class InferenceEngine:
             else:
                 lc = {name: t[i, slots] for name, t in cache.items()
                       if name != "lengths"}
+            if draft_valid is not None:
+                lc["draft_valid"] = draft_valid
             h, _ = llama.decoder_layer(llama.layer_params(params, i), h, cos,
                                        sin, self.cfg, cache=lc, pos=pos)
         return h
@@ -376,7 +418,8 @@ class InferenceEngine:
         """One fixed-width chunk [1, C] (pad past ``valid``) written into
         rows [start, start + C) of ``slot``; its queries attend over the
         parked prefix plus the chunk. Sets ``lengths[slot] = start + valid``
-        and returns the last valid token's logits [1, V] fp32."""
+        and returns (the last valid token's logits [1, V] fp32, its hidden
+        state before the final norm [1, H])."""
         C = tokens.shape[1]
         rows = (start + torch.arange(C, device=self.device))[None, :]
         cos, sin = rope_at_positions(self._cos, self._sin, rows)
@@ -387,14 +430,15 @@ class InferenceEngine:
         idx = min(max(valid - 1, 0), C - 1)
         last = llama.head_logits(params, h[:, idx: idx + 1], self.cfg)
         cache["lengths"][slot] = start + valid
-        return last[:, 0].float()
+        return last[:, 0].float(), h[:, idx]
 
     @torch.no_grad()
     def prefill_chunked(self, params, cache, prompt_ids, slot: int,
                         start: int = 0, adapter_id=None) -> tuple:
         """Prefill one prompt as fixed-width chunks written straight into
         ``slot`` (in place), under adapter slot ``adapter_id``. Returns
-        (cache, last-token logits [1, V])."""
+        (cache, last-token logits [1, V]); a ``return_hidden`` engine
+        appends the last chunk's last-token hidden state [1, H]."""
         params = self._bind_one(params, adapter_id)
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
@@ -408,7 +452,7 @@ class InferenceEngine:
                 f"chunked-prefill start {start} outside prompt of "
                 f"{ids.size} tokens")
         C = self.prefill_chunk
-        logits = None
+        logits = hidden = None
         for s0 in range(start, ids.size, C):
             end = min(s0 + C, ids.size)
             if self.paged is None:
@@ -429,11 +473,12 @@ class InferenceEngine:
             chunk = ids[w0:end]
             padded = np.zeros((1, C), np.int32)
             padded[0, : chunk.size] = chunk
-            logits = self._prefill_chunk(params, cache, self._tokens(padded),
-                                         slot, w0, chunk.size)
+            logits, hidden = self._prefill_chunk(
+                params, cache, self._tokens(padded), slot, w0, chunk.size)
             if self.paged is not None:
                 self.paged.set_len(slot, end)
-        return cache, logits
+        return (cache, logits, hidden) if self.return_hidden \
+            else (cache, logits)
 
     @torch.no_grad()
     def prefill_paged(self, params, cache, prompt_ids, slot: int,
@@ -447,7 +492,8 @@ class InferenceEngine:
         cache is searched and filled in ``cache_salt``'s domain (the
         tenant: an adapter changes every row a page holds), and the
         prefill runs under ``adapter_id``. Returns (cache, last-token
-        logits [1, V], dispatches, cached tokens)."""
+        logits [1, V], dispatches, cached tokens); a ``return_hidden``
+        engine appends the prompt's last hidden state [1, H]."""
         if self.paged is None:
             raise ValueError("prefill_paged needs kv_layout='paged'")
         ids = [int(t) for t in np.asarray(prompt_ids, np.int32).reshape(-1)]
@@ -457,30 +503,46 @@ class InferenceEngine:
         if cached > 0:
             cache = paged_kv.set_length(self._sync_tables(cache), slot,
                                         cached)
-            cache, logits = self.prefill_chunked(params, cache, ids, slot,
-                                                 start=cached,
-                                                 adapter_id=adapter_id)
+            out = self.prefill_chunked(params, cache, ids, slot,
+                                       start=cached, adapter_id=adapter_id)
+            cache = out[0]
             n = -(-(len(ids) - cached) // self.prefill_chunk)
         elif len(ids) <= self.prefill_chunk:
-            kv, logits = self.prefill(params, ids, adapter_id=adapter_id)
-            cache = self.insert(cache, kv, slot, len(ids))
+            out = self.prefill(params, ids, adapter_id=adapter_id)
+            cache = self.insert(cache, out[0], slot, len(ids))
             n = 1
         else:
-            cache, logits = self.prefill_chunked(params, cache, ids, slot,
-                                                 adapter_id=adapter_id)
+            out = self.prefill_chunked(params, cache, ids, slot,
+                                       adapter_id=adapter_id)
+            cache = out[0]
             n = -(-len(ids) // self.prefill_chunk)
         self.paged.register_prompt(slot, ids, salt=cache_salt)
-        return cache, logits, n, cached
+        return (cache, out[1], n, cached) + tuple(out[2:])
 
-    def _decode_core(self, params, cache, tokens) -> torch.Tensor:
-        """One model step for all slots: ``tokens`` [B] at each slot's own
-        ``cache['lengths']`` position -> logits [B, V] fp32. Writes the
-        step's K/V but does not advance the lengths."""
+    def _model_block(self, params, cache, tokens, draft_valid=None
+                     ) -> tuple:
+        """The incremental model body: ``tokens`` [B, S] at rows
+        ``cache['lengths'] + 0..S-1`` of each slot, their K/V written
+        there, attending causally over the cache prefix and the block ->
+        (logits [B, S, V] fp32, hidden states before the final norm
+        [B, S, H]). S == 1 is a decode step, S > 1 the verify block.
+        Does not advance the lengths."""
         pos = cache["lengths"]
-        cos, sin = rope_at_positions(self._cos, self._sin, pos[:, None])
-        h = llama.embed_lookup(params["embed"], tokens[:, None]).to(self._dt)
-        h = self._layers_over_cache(params, cache, h, cos, sin, pos)
-        return llama.head_logits(params, h, self.cfg)[:, 0].float()
+        rows = pos[:, None] + torch.arange(tokens.shape[1],
+                                           device=pos.device)[None, :]
+        cos, sin = rope_at_positions(self._cos, self._sin, rows)
+        h = llama.embed_lookup(params["embed"], tokens).to(self._dt)
+        h = self._layers_over_cache(params, cache, h, cos, sin, pos,
+                                    draft_valid=draft_valid)
+        return llama.head_logits(params, h, self.cfg).float(), h
+
+    def _decode_core(self, params, cache, tokens) -> tuple:
+        """One model step for all slots: ``tokens`` [B] at each slot's own
+        ``cache['lengths']`` position -> (logits [B, V] fp32, hidden
+        [B, H]). Writes the step's K/V but does not advance the
+        lengths."""
+        logits, h = self._model_block(params, cache, tokens[:, None])
+        return logits[:, 0], h[:, 0]
 
     @torch.no_grad()
     def decode_block(self, params, cache, tokens, generator, eos_id, budget,
@@ -497,7 +559,10 @@ class InferenceEngine:
         are what slot b produced. Paged: every page the block can write is
         made the writer's own first, and the host lengths follow the
         counts after. ``adapter_ids`` [slots] are the slots' adapter slots
-        on an engine with a pack (None: all null)."""
+        on an engine with a pack (None: all null). A ``return_hidden``
+        engine appends hidden [slots, H]: each slot's state before the
+        final norm at its last active step (zeros for a slot that made no
+        step), what produced its last emitted token."""
         dev = self.device
         if self.adapters is not None or adapter_ids is not None:
             params = self.bind_adapter_ids(params, adapter_ids, self.slots)
@@ -512,10 +577,15 @@ class InferenceEngine:
         tk = self._tokens(top_k)
         tp = torch.as_tensor(np.asarray(top_p, np.float32)).to(dev)
         emitted, actives = [], []
+        hid = (torch.zeros((self.slots, self.cfg.model.hidden_size),
+                           dtype=self._dt, device=dev)
+               if self.return_hidden else None)
         for _ in range(self.decode_block_len):
             pos = cache["lengths"]
             active = (pos > 0) & (budget > 0)
-            logits = self._decode_core(params, cache, tok)
+            logits, h = self._decode_core(params, cache, tok)
+            if hid is not None:
+                hid = torch.where(active[:, None], h, hid)
             if stochastic:
                 sampled = sampling.sample(logits, generator, temp, tk, tp)
             else:  # every row greedy: the same tokens without the sort
@@ -530,4 +600,134 @@ class InferenceEngine:
         counts = torch.stack(actives, dim=1).sum(dim=1, dtype=torch.int32)
         if self.paged is not None:
             self.paged.advance(counts.cpu().numpy())
-        return cache, torch.stack(emitted, dim=1), counts
+        out = (cache, torch.stack(emitted, dim=1), counts)
+        return out + (hid,) if hid is not None else out
+
+    @torch.no_grad()
+    def verify(self, params, cache, tokens, generator, eos_id, budget,
+               temperature, top_k, top_p, draft_len=None,
+               adapter_ids=None) -> tuple:
+        """One draft-verify dispatch for every slot (``spec_len > 0``
+        engines). ``tokens`` [slots, spec_len + 1]: column 0 each slot's
+        current last token, then its drafts. ``draft_len`` [slots]
+        (None: ``spec_len`` everywhere) makes the verify ragged: slot
+        ``b`` drafted ``draft_len[b]`` real tokens, and its pad columns are
+        neither accepted nor written. The other arguments are
+        ``decode_block``'s.
+
+        One model pass runs the S = spec_len + 1 tokens at rows
+        ``lengths + 0..S-1`` of each slot, writing their K/V (the real
+        ones, inside the window) and attending causally over the cache
+        prefix and the block; ``sampling.speculative_accept`` keeps the
+        accepted drafts and draws one fresh token; the budget and the
+        first emitted EOS cut the run. The lengths advance by the emitted
+        counts only: rejected rows sit past them, unreachable, and the
+        next dispatch overwrites them. Free slots (length 0) and slots
+        without budget emit nothing. Paged: every parked slot's S rows
+        are made its own pages first, and the host lengths follow the
+        counts after.
+
+        Returns (cache, emitted [slots, S], counts [slots], accepted
+        [slots]) as device tensors: the leading ``counts[b]`` entries of
+        row b are what slot b emitted, ``accepted[b]`` of them drafts. A
+        ``return_hidden`` engine appends hidden [slots, H], each slot's
+        state before the final norm at row ``counts - 1``."""
+        if self.spec_len < 1:
+            raise ValueError(
+                "speculative decoding is off for this engine (spec_len == "
+                "0); construct it with spec_len > 0 or set "
+                "inference.spec_len")
+        tokens = np.asarray(tokens, np.int32)
+        S = self.spec_len + 1
+        if tokens.shape != (self.slots, S):
+            raise ValueError(
+                f"verify tokens must be [slots, spec_len + 1] = "
+                f"[{self.slots}, {S}]; got {tuple(tokens.shape)}")
+        if draft_len is None:
+            valid = np.full(self.slots, S, np.int32)
+        else:
+            draft_len = np.asarray(draft_len, np.int32)
+            if draft_len.shape != (self.slots,):
+                raise ValueError(
+                    f"draft_len must be [slots] = [{self.slots}]; got "
+                    f"{draft_len.shape}")
+            if np.any(draft_len < 0) or np.any(draft_len > self.spec_len):
+                raise ValueError(
+                    f"draft_len entries must be in [0, spec_len = "
+                    f"{self.spec_len}]; got {draft_len.tolist()}")
+            valid = draft_len + 1
+        if self.adapters is not None or adapter_ids is not None:
+            params = self.bind_adapter_ids(params, adapter_ids, self.slots)
+        if self.paged is not None:
+            cache = self._pre_write(cache, S)
+        dev = self.device
+        tok = self._tokens(tokens)
+        valid_t = self._tokens(valid)
+        eos = self._tokens(eos_id)
+        budget = self._tokens(budget)
+        greedy_only = not bool((np.asarray(temperature) > 0).any())
+        temp = torch.as_tensor(np.asarray(temperature, np.float32)).to(dev)
+        tk = self._tokens(top_k)
+        tp = torch.as_tensor(np.asarray(top_p, np.float32)).to(dev)
+        pos0 = cache["lengths"]
+        logits, h = self._model_block(params, cache, tok,
+                                      draft_valid=valid_t)
+        emitted, counts = sampling.speculative_accept(
+            logits, tok[:, 1:], generator, temp, tk, tp,
+            draft_len=valid_t - 1, greedy_only=greedy_only)
+        raw = counts  # accepted drafts + 1 fresh token, before any cut
+        active = (pos0 > 0) & (budget > 0)
+        counts = torch.where(active, torch.minimum(counts, budget), 0)
+        cols = torch.arange(S, device=dev)[None, :]
+        is_eos = ((eos >= 0)[:, None] & (emitted == eos[:, None])
+                  & (cols < counts[:, None]))
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1) + 1
+        counts = torch.where(is_eos.any(dim=1), first_eos.to(torch.int32),
+                             counts)
+        emitted = torch.where(cols < counts[:, None], emitted, 0)
+        # all but (possibly) the last emitted token are drafts: with no cut,
+        # raw - 1 drafts and the fresh token; cut below that, all drafts
+        accepted = torch.minimum(raw - 1, counts)
+        cache["lengths"] = torch.where(active, pos0 + counts, pos0)
+        if self.paged is not None:
+            self.paged.advance(counts.cpu().numpy())
+        out = (cache, emitted, counts, accepted)
+        if not self.return_hidden:
+            return out
+        idx = (counts.long() - 1).clamp(0, S - 1)
+        return out + (h[torch.arange(self.slots, device=dev), idx],)
+
+    def make_draft_program(self, with_head: bool = False):
+        """The learned drafter's pass (EAGLE-style, Li et al. 2024): a
+        function ``(params[, head], hidden [B, H], tokens [B]) -> drafts
+        [B, spec_len]`` int32 that runs ``spec_len`` greedy steps. Each
+        step folds the current token's embedding into the running state
+        (``hidden + embed(tok)``, or ``tanh(cat(embed, hidden) @
+        head["w"])`` with a head), takes the target's final norm and LM
+        head over it and the argmax. No cache is read or written; the
+        caller passes the base tree (an adapter shapes the verify's
+        logits, never the draft's)."""
+        if self.spec_len < 1:
+            raise ValueError(
+                "make_draft_program needs a speculative engine "
+                "(spec_len > 0)")
+        G, cfg = self.spec_len, self.cfg
+
+        @torch.no_grad()
+        def program(params, *args):
+            head, hidden, tok = args if with_head else (None, *args)
+            h, tok = hidden, tok.to(torch.int32)
+            out = []
+            for _ in range(G):
+                e = llama.embed_lookup(params["embed"], tok).to(h.dtype)
+                if head is not None:
+                    h = torch.tanh(torch.cat([e, h], dim=-1)
+                                   @ head["w"].to(h.dtype))
+                else:
+                    h = h + e
+                logits = llama.head_logits(params, h[:, None, :], cfg)[:, 0]
+                tok = logits.argmax(dim=-1).to(torch.int32)
+                out.append(tok)
+            return torch.stack(out, dim=1)
+
+        return program

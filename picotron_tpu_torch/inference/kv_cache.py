@@ -92,19 +92,34 @@ def quantized(cache: dict) -> bool:
 def cache_write(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                 pos: torch.Tensor) -> dict:
     """Write fresh K/V rows [B, S, H, D] into one layer's [B, T, H, D]
-    blocks, slot ``b`` from row ``pos[b]`` on (in place). S == 1 is the
-    decode step (free slots write their invisible row 0); S > 1 with
-    B == 1 a prefill chunk. An int8 cache quantizes on write, its scale
-    rows landing at the same positions. The engine keeps every row it
-    writes inside the window (the chunk window slides back from the end,
-    a parked slot never holds more than T - 1 tokens); the clamp only
-    keeps an index that would break that rule from faulting the device.
-    A paged layer cache takes ``paged_kv.cache_write``."""
+    blocks, slot ``b`` from row ``pos[b]`` on (in place). Three shapes:
+
+    - decode (S == 1): every slot writes one row (free slots their
+      invisible row 0);
+    - a prefill chunk (S > 1, B == 1): one slot writes S rows, which the
+      engine keeps inside the window (the chunk window slides back from
+      the end);
+    - the speculative verify (S > 1, B > 1, or any write that carries a
+      ``draft_valid`` entry): every slot writes S rows from its own
+      position. Rows past the window drop (they never land on an earlier
+      row), and so do the rows at or past a slot's ``draft_valid`` [B]
+      count of real fed tokens, the ragged verify's mask that the engine
+      splices into each layer's dict for the dispatch. Rows past the
+      post-acceptance length stay stale and unreachable: the length
+      pointer is the rewind.
+
+    An int8 cache quantizes on write, its scale rows landing at the same
+    positions. In the first two shapes a row index that would leave the
+    window is clamped, which only keeps a broken caller from faulting the
+    device. A paged layer cache takes ``paged_kv.cache_write``."""
     if "block_tables" in layer_cache:
         from picotron_tpu_torch.inference import paged_kv
 
         return paged_kv.cache_write(layer_cache, k_new, v_new, pos)
+    valid = layer_cache.get("draft_valid")
     B, S = k_new.shape[:2]
+    if S > 1 and (B > 1 or valid is not None):
+        return _masked_write(layer_cache, k_new, v_new, pos, valid)
     T = layer_cache["k"].shape[1]
     rows = (pos.long()[:, None]
             + torch.arange(S, device=pos.device)[None, :]).clamp_(max=T - 1)
@@ -116,6 +131,45 @@ def cache_write(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         else:
             vals = new.to(layer_cache[name].dtype)
         layer_cache[name][bidx, rows] = vals
+    return layer_cache
+
+
+def _masked_write(layer_cache: dict, k_new: torch.Tensor,
+                  v_new: torch.Tensor, pos: torch.Tensor,
+                  valid: torch.Tensor | None) -> dict:
+    """The verify write: slot ``b``'s fresh row ``s`` lands at row
+    ``pos[b] + s`` when that row is inside the window and ``s <
+    valid[b]``, and nowhere otherwise. Each slot rewrites the S rows of a
+    window that starts at ``min(pos[b], T - S)`` (distinct rows, inside
+    the cache), each with its fresh row where one lands and its old bytes
+    elsewhere: no index repeats, so the result does not depend on the
+    order of the writes, and nothing waits on the host."""
+    B, S = k_new.shape[:2]
+    T = layer_cache["k"].shape[1]
+    if S > T:
+        raise ValueError(f"a write of {S} rows a slot exceeds the cache "
+                         f"window of {T}")
+    dev = pos.device
+    p = pos.long()[:, None]
+    rows = p.clamp(max=T - S) + torch.arange(S, device=dev)[None, :]
+    src = rows - p  # the fresh row each window row would take
+    keep = (src >= 0) & (src < S)
+    if valid is not None:
+        keep &= src < valid.long()[:, None]
+    src = src.clamp(0, S - 1)
+    bidx = torch.arange(B, device=dev)[:, None]
+    for name, new in (("k", k_new), ("v", v_new)):
+        if quantized(layer_cache):
+            vals, scales = quantize_kv(new)
+            sname = name + "_scale"
+            layer_cache[sname][bidx, rows] = torch.where(
+                keep[..., None], scales[bidx, src],
+                layer_cache[sname][bidx, rows])
+        else:
+            vals = new.to(layer_cache[name].dtype)
+        layer_cache[name][bidx, rows] = torch.where(
+            keep[..., None, None], vals[bidx, src],
+            layer_cache[name][bidx, rows])
     return layer_cache
 
 

@@ -132,11 +132,19 @@ def cache_write(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     (B = 1). Out-of-window rows and free slots' NULL entries write the
     NULL page. An int8 cache quantizes on write; a ``hot_bf16`` cache
     writes both representations. The host allocator made every page this
-    can touch exclusively the writer's before the dispatch."""
+    can touch exclusively the writer's before the dispatch, so the
+    verify's rejected rows strand only in the writer's own pages. A
+    ``draft_valid`` [B] entry (the ragged verify's mask, spliced in per
+    dispatch) sends the rows at or past a slot's count of real fed tokens
+    to the NULL page too."""
     S = k_new.shape[1]
     bt = layer_cache["block_tables"]
     page_len = layer_cache["k"].shape[1]
     rows = pos.long()[:, None] + torch.arange(S, device=pos.device)[None, :]
+    valid = layer_cache.get("draft_valid")
+    if valid is not None and S > 1:
+        cols = torch.arange(S, device=pos.device)[None, :]
+        rows = torch.where(cols < valid.long()[:, None], rows, -1)
     pid, off = _targets(bt, rows, page_len)
     policy = is_policy(layer_cache)
     # int8 rows with scales: a uniformly int8 cache, or hot_bf16's side pool

@@ -8,6 +8,13 @@ first, then top-k, then top-p on the rescaled distribution;
 ``torch.Generator``: it gives other numbers than ``jax.random`` from the
 same seed, so sampled streams agree with the JAX package in distribution,
 not token for token.
+
+``speculative_accept`` is the verify pass's acceptance rule (Leviathan et
+al. 2023; Chen et al. 2023) for a deterministic drafter: greedy rows keep
+the draft prefix that matches the argmax chain and emit the argmax after
+it, bit for bit the JAX rule's; sampled rows accept draft ``i`` with
+probability ``p_i(draft_i)`` and draw the fresh token from the residual,
+which keeps the sampler's distribution.
 """
 
 from __future__ import annotations
@@ -93,3 +100,98 @@ def sample(logits: torch.Tensor, generator: torch.Generator,
     drawn = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return torch.where((temperature <= 0) | bad, greedy_tok,
                        drawn.to(torch.int32))
+
+
+def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """The distribution ``sample`` draws its sampled rows from: softmax
+    over the temperature-scaled, top-k- and top-p-filtered logits, the
+    non-finite entries sanitized first. [N, V] with [N] parameters ->
+    [N, V] fp32."""
+    t = temperature.float().clamp(min=1e-6)[:, None]
+    return torch.softmax(filter_top_k_top_p(
+        sanitize_logits(logits).float() / t, top_k, top_p), dim=-1)
+
+
+def _leading_true(ok: torch.Tensor) -> torch.Tensor:
+    """Length of each row's leading all-True run: [B, G] bool -> [B]
+    int32."""
+    return torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1,
+                                                        dtype=torch.int32)
+
+
+def speculative_accept(logits: torch.Tensor, draft: torch.Tensor,
+                       generator: torch.Generator,
+                       temperature: torch.Tensor, top_k: torch.Tensor,
+                       top_p: torch.Tensor,
+                       draft_len: torch.Tensor | None = None,
+                       greedy_only: bool | None = None) -> tuple:
+    """Accept a deterministic draft against the verify pass's logits.
+
+    ``logits`` [B, S, V] fp32, where ``logits[:, i]`` scores the token
+    after fed token ``i`` (S = G + 1: the slot's last token, then G
+    drafts); ``draft`` [B, G] int32; ``temperature``/``top_k``/``top_p``
+    [B], as ``sample`` takes them. ``draft_len`` [B] (None: G everywhere)
+    makes the verify ragged: columns at or past a row's own draft length
+    are never accepted and never count as a rejection, so a row with
+    draft length 0 is one decode step. Returns (emitted [B, S] int32,
+    counts [B] int32): the leading ``counts[b]`` (1 to G + 1) entries of
+    row b are the accepted drafts and one fresh token, zeros after.
+
+    Greedy rows (temperature <= 0) accept while the draft equals the
+    argmax of the sanitized logits and emit the argmax after the run.
+    Sampled rows draw G uniforms from ``generator`` (draft ``i`` accepted
+    while ``u_i < p_i(draft_i)``), then one categorical draw from the
+    residual: ``p`` at the first rejected position with the rejected
+    token taken out, renormalized, or the bonus position's ``p`` when
+    every real draft was accepted. ``greedy_only`` (the caller knows every
+    row is greedy, or knows one is not) skips reading the temperatures on
+    the device; an all-greedy batch runs no filter, softmax or draw."""
+    B, S, V = logits.shape
+    G = S - 1
+    dev = logits.device
+    cols_g = torch.arange(G, device=dev)[None, :]
+    real = (cols_g < draft_len[:, None]) if draft_len is not None else None
+    preds = greedy(sanitize_logits(logits.reshape(B * S, V))).reshape(B, S)
+    ok_greedy = draft == preds[:, :G]
+    if real is not None:
+        ok_greedy &= real
+    acc_greedy = _leading_true(ok_greedy)
+    last_greedy = preds.gather(1, acc_greedy.long()[:, None])[:, 0]
+    if greedy_only is None:
+        greedy_only = bool((temperature <= 0).all())
+    if greedy_only:
+        acc, last = acc_greedy, last_greedy
+    else:
+        probs = filtered_probs(
+            logits.reshape(B * S, V), temperature.repeat_interleave(S),
+            top_k.repeat_interleave(S),
+            top_p.repeat_interleave(S)).reshape(B, S, V)
+        p_draft = probs[:, :G].gather(2, draft.long()[..., None])[..., 0]
+        u = torch.rand((B, G), generator=generator, device=dev)
+        ok = u < p_draft
+        if real is not None:
+            ok &= real
+        acc_s = _leading_true(ok)
+        p_next = probs.gather(
+            1, acc_s.long()[:, None, None].expand(B, 1, V))[:, 0]
+        rej = draft.gather(1, acc_s.clamp(max=G - 1).long()[:, None])[:, 0]
+        rejected = acc_s < (draft_len if draft_len is not None else G)
+        strip = ((torch.arange(V, device=dev)[None, :] == rej[:, None])
+                 & rejected[:, None])
+        res = torch.where(strip, 0.0, p_next)
+        total = res.sum(dim=-1, keepdim=True)
+        # an empty residual draws uniformly, as the JAX rule's categorical
+        # over log(max(res, 1e-20)) does
+        res = torch.where(total > 0, res / total.clamp(min=1e-20), 1.0 / V)
+        fresh = torch.multinomial(res, 1, generator=generator)[:, 0]
+        sampled_row = temperature > 0
+        acc = torch.where(sampled_row, acc_s, acc_greedy)
+        last = torch.where(sampled_row, fresh.to(torch.int32), last_greedy)
+    cols = torch.arange(S, device=dev)[None, :]
+    padded = torch.cat([draft.to(torch.int32),
+                        torch.zeros((B, 1), dtype=torch.int32, device=dev)],
+                       dim=1)
+    emitted = torch.where(cols < acc[:, None], padded, 0)
+    emitted = torch.where(cols == acc[:, None], last[:, None], emitted)
+    return emitted.to(torch.int32), (acc + 1).to(torch.int32)

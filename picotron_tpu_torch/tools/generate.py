@@ -31,6 +31,10 @@ fake-quant reference (the int8 weights dequantized): on the CPU the
 greedy tokens must be identical; on the card, where the two matmuls round
 differently, it reports the first position where they differ and the
 reference's logit gap there.
+``--spec-len N`` speculates: the prompt-lookup drafter (``--spec-ngram``,
+or ``inference.drafter`` of the config) proposes N tokens a slot and one
+verify pass emits 1 to N + 1; the summary line then reports ``spec=N
+accept=R``.
 ``--adapter RANK[:SEED[:SCALE]]`` serves every request through one
 seed-derived LoRA adapter (slot 1 of a two-slot pack, through kernel H on
 the card); ``--check-adapter-parity`` runs the batch again on a pack-less
@@ -130,7 +134,9 @@ def _parity(args, cfg, engine, results, adapter_leaves=None) -> int:
     eng2 = InferenceEngine(cfg, engine.device, slots=args.slots,
                            decode_block_len=args.decode_block_len,
                            prefill_chunk=args.prefill_chunk,
-                           attend_impl=args.attend_impl, weight_dtype="bf16")
+                           attend_impl=args.attend_impl, weight_dtype="bf16",
+                           spec_len=args.spec_len,
+                           spec_ngram=args.spec_ngram)
     ref = _load_weights(args, eng2, engine.weight_dtype)
     if engine.weight_dtype == "int8":
         ref = llama.dequantize_params(ref, torch_dtype(cfg.model.dtype))
@@ -193,6 +199,13 @@ def main(argv=None, device=None) -> int:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked-prefill width for prompts longer than "
                          "this (default: config inference.prefill_chunk)")
+    ap.add_argument("--spec-len", type=int, default=None,
+                    help="speculative decoding: draft tokens per verify "
+                         "dispatch (default: config inference.spec_len; "
+                         "0 = off)")
+    ap.add_argument("--spec-ngram", type=int, default=None,
+                    help="longest suffix n-gram the prompt-lookup drafter "
+                         "matches (default: config inference.spec_ngram)")
     ap.add_argument("--attend-impl", choices=["dense", "flash"], default=None,
                     help="KV-cache attention: the flash-decode kernel or the "
                          "dense whole-window version (default: config "
@@ -307,7 +320,8 @@ def main(argv=None, device=None) -> int:
                              decode_block_len=args.decode_block_len,
                              prefill_chunk=args.prefill_chunk,
                              attend_impl=args.attend_impl,
-                             adapters=adapters)
+                             adapters=adapters, spec_len=args.spec_len,
+                             spec_ngram=args.spec_ngram)
     params = _load_weights(args, engine, engine.weight_dtype)
     requests = _build_requests(args)
     if adapters is not None:
@@ -337,12 +351,15 @@ def main(argv=None, device=None) -> int:
               f"({r.finish_reason})")
     dpt = batcher.decode_dispatches / max(batcher.generated_tokens, 1)
     kv = str(engine.cache_dtype).removeprefix("torch.")
+    spec = (f"spec={engine.spec_len} "
+            f"accept={batcher.accept_rate:.2f} " if engine.spec_len > 0
+            and batcher.accept_rate is not None else "")
     log0(f"{n_tokens} tokens in {gen_s:.2f}s "
           f"({n_tokens / max(gen_s, 1e-9):.1f} tok/s, "
           f"setup {setup_s:.1f}s, slots={engine.slots}, "
           f"tp=1, block={engine.decode_block_len}, "
           f"kv={kv}, weights={engine.weight_dtype}, "
-          f"{batcher.decode_dispatches} decode dispatches = "
+          f"{spec}{batcher.decode_dispatches} decode dispatches = "
           f"{dpt:.3f}/token)")
     if batcher.paged is not None:
         st = batcher.stats()
