@@ -160,12 +160,28 @@ Run from the root of a checkout. Phases, each of which must pass:
    line prints decode tokens/s, dispatches per token and the accept rate
    beside phases 3's and 5's spec-off figures. Then the generate command
    line with ``--spec-len 4 --spec-ngram 3``, on the card by default;
-11. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+11. the per-slot key schedule, sampling in the dispatch and the
+   fault-tolerant serving round on phase 3's model, 8 slots, phase 3's
+   prompts: ``serve_slot`` (``key_schedule: "slot"`` at temperature 0.8:
+   the same bits at decode blocks of 1 and 4, phase 3's greedy streams at
+   temperature 0, an [8, V] draw equal to each row's draw alone; its decode
+   rate beside the round schedule's, the draw's time beside
+   torch.multinomial's), ``serve_slot_spec`` (``spec_len`` 4: full budgets,
+   the greedy gate, where its sampled streams part from ``serve_slot``'s),
+   ``sample_on_device`` (phase 3's greedy streams; no [8, V] copy to the
+   host in a profiled ``decode_step`` round) and ``serve_chaos`` (two
+   attempts a dispatch, a raise, a failing slot, a latency spike and a
+   request's deadline, greedy and at temperature 0.8: the failing slot's
+   request "error", the late one "timeout", every other one its full
+   budget and the fault-free run's bits; then NaN logits in a round: every
+   request accounted for). Each run launches A, B and C and no other;
+12. a ``{"kernels": [...]}`` line with each kernel's launches on its own
    path (and on each path: ``serve``, ``serve_paged``,
    ``serve_paged_int8``, ``serve_mixed``, ``serve_tenants``,
    ``serve_int8``, ``train``, ``checkpoint``, ``serve_spec``,
    ``serve_spec_learned``, ``serve_spec_paged``, ``serve_spec_oracle``,
-   ``serve_spec_offscript``),
+   ``serve_spec_offscript``, ``serve_slot``, ``serve_slot_spec``,
+   ``sample_on_device``, ``serve_chaos``),
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
@@ -2153,6 +2169,386 @@ def _spec_serve_phase(torch, np, card, paths, all_kernels, spec_off) -> dict:
     return by_path
 
 
+# phase 11's fault injection (resilience.*): two attempts a dispatch, a
+# raise at round 3, every dispatch with slot 5 active failing, a 0.05 s
+# spike at round 2; and in a second run NaN logits at round 4. REQUEST_TIMEOUT
+# is r0's deadline: far shorter than the first round, so r0 times out at
+# the start of the second with its first round's tokens
+CHAOS = {"dispatch_attempts": 2, "chaos_dispatch_raise_round": 3,
+         "chaos_dispatch_fail_slot": 5, "chaos_latency_round": 2,
+         "chaos_latency_s": 0.05}
+POISON = {"dispatch_attempts": 2, "chaos_poison_logits_round": 4}
+REQUEST_TIMEOUT = 0.01
+KEYS_BLOCK = 4  # phase 11's decode_block_len (phase 3's is the config's 8)
+
+
+def _dtoh_copies(torch, run) -> list:
+    """The bytes of every device-to-host copy ``run`` makes, from the
+    profiler's trace (the exported trace's copy events carry their size;
+    the in-memory events do not)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    sizes = []
+    for e in events:
+        name = e.get("name", "")
+        if "Memcpy" in name and "DtoH" in name:
+            n = e.get("args", {}).get("bytes")
+            if n is None:
+                raise AssertionError(f"no byte count on the copy {name!r}: "
+                                     f"{e.get('args')}")
+            sizes.append(int(n))
+    return sizes
+
+
+def _keys_and_faults_phase(torch, np, card, paths, all_kernels,
+                           spec_off) -> dict:
+    """Phase 11: the per-slot key schedule, sampling in the dispatch and the
+    fault-tolerant serving round, on phase 3's model (SmolLM-1.7B at full
+    width and depth, 8 slots, phase 3's prompts, ``NEW_TOKENS`` each).
+    Every kernel's count is set to 0 just before each run and read just
+    after, and each run must launch A, B and C and no other kernel;
+    returns each path's counts.
+
+    - ``serve_slot``: ``key_schedule: "slot"``, every request at
+      temperature 0.8 (top-p 0.9), decode blocks of ``KEYS_BLOCK``: the
+      streams at block length 1 must be the same bits, the traffic at
+      temperature 0 must give phase 3's greedy streams bit for bit (and
+      pass its greedy gate), and the slot draw of an [8, V] batch must be
+      each row's draw alone; its decode rate beside the round schedule's
+      on the same traffic, and the draw's time beside torch.multinomial's.
+    - ``serve_slot_spec``: the slot schedule with ``spec_len`` 4 and the
+      n-gram drafter on phase 3's traffic: full budgets and phase 3's
+      greedy gate; where its sampled streams part from ``serve_slot``'s
+      (printed, not gated: a verify's rows round otherwise), the accept
+      rate.
+    - ``sample_on_device``: phase 3's traffic and config with the first
+      tokens drawn in the prefill dispatches: phase 3's greedy streams bit
+      for bit; a profiled ``decode_step`` round copies no [8, V] array to
+      the host.
+    - ``serve_chaos``: the round schedule at ``KEYS_BLOCK`` with ``CHAOS``
+      and r0's ``REQUEST_TIMEOUT``, greedy and at temperature 0.8: slot
+      5's request (r5) ends "error", r0 "timeout", and every other request
+      has its full budget and the fault-free run's stream bit for bit;
+      the seconds of the round that retried and isolated beside a
+      fault-free round's. Then ``POISON``: no crash, every request
+      accounted for, every token in the vocabulary."""
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference import prng, sampling
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.resilience.chaos import ServingChaos
+
+    base = Config.from_json(CONFIG)
+    m = base.model
+    V = m.vocab_size
+    params = llama.init_params(m, seed=SEED, device=torch.device(DEVICE))
+    greedy3 = spec_off["serve"]["streams"]  # phase 3's greedy streams
+    by_path = {}
+
+    def traffic(temp=None, tag="r"):
+        """Phase 3's requests; ``temp`` sets every request's temperature
+        (top-p 0.9 where it samples)."""
+        reqs = _requests(np, V, tag)
+        if temp is not None:
+            for r in reqs:
+                r.temperature, r.top_p = temp, (0.9 if temp > 0 else 1.0)
+        return reqs
+
+    def engine_for(path, hooks=None, **inf):
+        cfg = Config.from_json(CONFIG)
+        for k, v in inf.items():
+            if k in CHAOS or k in POISON:
+                setattr(cfg.resilience, k, v)
+            else:
+                setattr(cfg.inference, k, v)
+        cfg.validate()
+        engine = InferenceEngine(cfg, DEVICE, slots=8, attend_impl="flash",
+                                 hooks=hooks)
+        # a sampled request warms the draw's kernels too
+        ContinuousBatcher(engine, params, seed=SEED).run(
+            [Request("warm", list(range(1, 25)), max_new_tokens=6,
+                     temperature=0.8)])
+        return engine
+
+    def run(path, engine, requests):
+        """One counted run; returns (results, batcher, counts, wall, and
+        for each step the seconds of its decode or verify round with the
+        dispatches the hook saw in it)."""
+        batcher = ContinuousBatcher(engine, params, seed=SEED)
+        torch.cuda.synchronize()
+        for kern in all_kernels:
+            kern.launches = 0
+        steps = []
+        t0 = time.perf_counter()
+        for r in requests:
+            batcher.submit(r)
+        while batcher.busy:
+            r0 = getattr(engine.hooks, "round", 0)
+            d0 = batcher.decode_seconds
+            batcher.step()
+            steps.append((batcher.decode_seconds - d0,
+                          getattr(engine.hooks, "round", 0) - r0))
+        results = batcher.take_results()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in all_kernels}
+        launches = {kern.name: counts[kern.name] for kern in paths[path]}
+        idle = [name for name, n in launches.items() if n == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on {path}: {idle}")
+        stray = {k: n for k, n in counts.items() if n and k not in launches}
+        if stray:
+            raise AssertionError(f"kernels of another path launched on "
+                                 f"{path}: {stray}")
+        for r in requests:
+            res = results[r.uid]
+            if not all(0 <= t < V for t in res.tokens):
+                raise AssertionError(f"{path} {r.uid}: a token outside the "
+                                     f"vocabulary")
+        return results, batcher, counts, wall, steps
+
+    def full(path, requests, results, skip=()):
+        for r in requests:
+            res = results[r.uid]
+            if r.uid not in skip and (len(res.tokens) != NEW_TOKENS
+                                      or res.finish_reason != "length"):
+                raise AssertionError(f"{path} {r.uid}: {len(res.tokens)} "
+                                     f"tokens, {res.finish_reason}")
+
+    def streams(results):
+        return {u: r.tokens for u, r in results.items()}
+
+    def parts(a, b):
+        return {u: next((i for i, (x, y) in enumerate(zip(a[u], b[u]))
+                         if x != y), None) for u in a}
+
+    def figures(batcher, results, wall):
+        ttft = sorted(r.ttft_s for r in results.values()
+                      if r.ttft_s is not None)
+        return {**_decode_figures(batcher, len(results)), "wall_s": wall,
+                "ttft_p50_s": ttft[len(ttft) // 2] if ttft else None}
+
+    # -- serve_slot -------------------------------------------------------
+    slot = engine_for("serve_slot", key_schedule="slot",
+                      decode_block_len=KEYS_BLOCK)
+    round_eng = engine_for("serve_slot", decode_block_len=KEYS_BLOCK)
+    res, b, counts, wall, _ = run("serve_slot", slot, traffic(0.8))
+    full("serve_slot", traffic(0.8), res)
+    by_path["serve_slot"] = counts
+    slot_08 = streams(res)
+    rates = {"slot": [figures(b, res, wall)], "round": []}
+    round_08 = None
+    # the two schedules' rates in turns (slot, round, round, slot), each
+    # schedule's streams the same bits every time
+    for eng, key in ((round_eng, "round"), (round_eng, "round"),
+                     (slot, "slot")):
+        resr, br, _, wallr, _ = run("serve_slot", eng, traffic(0.8))
+        full("serve_slot", traffic(0.8), resr)
+        rates[key].append(figures(br, resr, wallr))
+        if key == "round" and round_08 is None:
+            round_08 = streams(resr)
+        if streams(resr) != (slot_08 if key == "slot" else round_08):
+            raise AssertionError(f"serve_slot: a second {key} run gave "
+                                 f"other streams")
+    one = engine_for("serve_slot", key_schedule="slot", decode_block_len=1)
+    res1, b1, *_ = run("serve_slot", one, traffic(0.8))
+    if streams(res1) != slot_08:
+        raise AssertionError(
+            f"serve_slot: block 1 and block {KEYS_BLOCK} part at "
+            f"{parts(streams(res1), slot_08)}")
+    del one
+    resg, *_ = run("serve_slot", slot, traffic(0.0))
+    full("serve_slot", traffic(0.0), resg)
+    slot_greedy = streams(resg)
+    off_phase3 = {u: i for u, i in parts(
+        {u: slot_greedy[u] for u in greedy3}, greedy3).items()
+        if i is not None}
+    if off_phase3:
+        raise AssertionError(f"serve_slot greedy streams part from phase "
+                             f"3's at {off_phase3}")
+    gaps = {u: _greedy_agrees(torch, llama, params, slot.cfg, r)
+            for u, r in resg.items()}
+    del slot, round_eng
+    # the draw: an [8, V] batch against each row alone, and its time
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    logits = 4.0 * torch.randn((8, V), generator=gen, device=DEVICE)
+    keys = prng.fold_in(prng.split(prng.PRNGKey(SEED), 8).to(DEVICE),
+                        torch.arange(100, 108, device=DEVICE))
+    t = torch.full((8,), 0.8, device=DEVICE)
+    k0 = torch.zeros(8, dtype=torch.int32, device=DEVICE)
+    p9 = torch.full((8,), 0.9, device=DEVICE)
+    batch = sampling.sample_rowkeys(logits, keys, t, k0, p9)
+    alone = torch.cat([sampling.sample_rowkeys(
+        logits[i:i + 1], keys[i:i + 1], t[:1], k0[:1], p9[:1])
+        for i in range(8)])
+    if not torch.equal(batch, alone):
+        raise AssertionError(f"slot draw: batch {batch.tolist()} against "
+                             f"rows alone {alone.tolist()}")
+    filtered = sampling.filter_top_k_top_p(logits / 0.8, k0, p9)
+    probs = torch.softmax(filtered, dim=-1)
+    draw = {
+        "slot_draw_ms": _time_ms(lambda: prng.categorical(keys, filtered)),
+        "slot_draw_device_ms": _device_ms(
+            torch, lambda: prng.categorical(keys, filtered)),
+        "multinomial_ms": _time_ms(
+            lambda: torch.multinomial(probs, 1, generator=gen)),
+        "multinomial_device_ms": _device_ms(
+            torch, lambda: torch.multinomial(probs, 1, generator=gen)),
+        "sample_rowkeys_ms": _time_ms(
+            lambda: sampling.sample_rowkeys(logits, keys, t, k0, p9,
+                                            greedy_only=False)),
+        "sample_ms": _time_ms(
+            lambda: sampling.sample(logits, gen, t, k0, p9))}
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B serve_slot", "card": card,
+        "requests": len(res), "new_tokens_each": NEW_TOKENS,
+        "decode_block_len": KEYS_BLOCK, "temperature": 0.8,
+        "slot_runs": rates["slot"], "round_runs": rates["round"],
+        **{f"{k}_decode_tokens_per_s_mean": statistics.mean(
+            f["decode_tokens_per_s"] for f in v) for k, v in rates.items()},
+        "block_1_same_bits": True, "greedy_is_phase_3s": True,
+        "slot_parts_from_round_at": parts(slot_08, round_08),
+        "draw_batch_equals_rows_alone": True, "draw_shape": [8, V],
+        **draw,
+        "launches": {k.name: counts[k.name] for k in paths["serve_slot"]},
+        "greedy_max_logit_gap": max(gaps.values())}), flush=True)
+
+    # -- serve_slot_spec --------------------------------------------------
+    spec = engine_for("serve_slot_spec", key_schedule="slot",
+                      spec_len=SPEC_LEN, drafter="ngram")
+    reqs = traffic()
+    res, b, counts, wall, _ = run("serve_slot_spec", spec, reqs)
+    full("serve_slot_spec", reqs, res)
+    by_path["serve_slot_spec"] = counts
+    gaps = {r.uid: _greedy_agrees(torch, llama, params, spec.cfg,
+                                  res[r.uid])
+            for r in reqs if r.temperature == 0}
+    sampled = [r.uid for r in reqs if r.temperature > 0]
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B serve_slot_spec", "card": card,
+        "spec_len": SPEC_LEN, "drafter": "ngram", **figures(b, res, wall),
+        "draft_proposed": b.draft_proposed,
+        "draft_accepted": b.draft_accepted,
+        "sampled_parts_from_serve_slot_at": parts(
+            {u: res[u].tokens for u in sampled}, slot_08),
+        "launches": {k.name: counts[k.name]
+                     for k in paths["serve_slot_spec"]},
+        "greedy_max_logit_gap": max(gaps.values())}), flush=True)
+    del spec
+
+    # -- sample_on_device -------------------------------------------------
+    sod = engine_for("sample_on_device", sample_on_device=True)
+    reqs = traffic()
+    res, b, counts, wall, _ = run("sample_on_device", sod, reqs)
+    full("sample_on_device", reqs, res)
+    by_path["sample_on_device"] = counts
+    moved = {u: i for u, i in parts(
+        {u: res[u].tokens for u in greedy3}, greedy3).items()
+        if i is not None}
+    if moved:
+        raise AssertionError(f"sample_on_device: greedy streams part from "
+                             f"phase 3's at {moved}")
+    # one decode round of parked slots, profiled: what crosses to the host
+    cache = sod.init_cache()
+    sgen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    last = np.zeros(8, np.int32)
+    for s, r in enumerate(reqs[:3]):
+        out = sod.prefill(params, r.prompt[:64],
+                          sample=(sgen, 0.0, 0, 1.0))
+        cache = sod.insert(cache, out[0], s, min(len(r.prompt), 64))
+        last[s] = int(out[1][0])
+    zeros, ones = np.zeros(8, np.float32), np.ones(8, np.float32)
+    holder = {}
+
+    def decode_round():
+        holder["out"] = sod.decode_step(params, cache, last, sgen, zeros,
+                                        np.zeros(8, np.int32), ones)
+        holder["tokens"] = holder["out"][1].cpu()
+
+    decode_round()
+    copies = _dtoh_copies(torch, decode_round)
+    if holder["out"][2] is not None:
+        raise AssertionError("sample_on_device: decode_step returned logits")
+    if any(n >= 8 * V * 4 for n in copies) or not copies:
+        raise AssertionError(f"sample_on_device: device-to-host copies of "
+                             f"{copies} bytes in a decode round")
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B sample_on_device", "card": card,
+        **figures(b, res, wall), "greedy_is_phase_3s": True,
+        "decode_round_dtoh_bytes": copies, "logits_bytes": 8 * V * 4,
+        "launches": {k.name: counts[k.name]
+                     for k in paths["sample_on_device"]}}), flush=True)
+    del sod, cache, holder
+
+    # -- serve_chaos ------------------------------------------------------
+    chaos_fig = {}
+    for temp, want in ((0.0, slot_greedy), (0.8, round_08)):
+        hook = ServingChaos(Config.from_dict(
+            {"resilience": CHAOS}).resilience)
+        eng = engine_for("serve_chaos", hooks=None,
+                         decode_block_len=KEYS_BLOCK, **CHAOS)
+        eng.hooks = hook  # after the warm-up: its rounds count from here
+        reqs = traffic(temp)
+        reqs[0].timeout_s = REQUEST_TIMEOUT
+        res, b, counts, wall, steps = run("serve_chaos", eng, reqs)
+        if res["r0"].finish_reason != "timeout" or not res["r0"].tokens:
+            raise AssertionError(f"serve_chaos: r0 {res['r0'].finish_reason}"
+                                 f" with {len(res['r0'].tokens)} tokens")
+        if res["r5"].finish_reason != "error":
+            raise AssertionError(f"serve_chaos: r5 {res['r5'].finish_reason}")
+        full("serve_chaos", reqs, res, skip=("r0", "r5"))
+        bad = {u: parts({u: res[u].tokens}, want)[u] for u in res
+               if u not in ("r0", "r5") and res[u].tokens != want[u]}
+        if bad:
+            raise AssertionError(f"serve_chaos at {temp}: survivors part "
+                                 f"from the fault-free run at {bad}")
+        if b.counters != {"admitted": 8, "completed": 6, "expired": 1,
+                          "errored": 1, "shed": 0}:
+            raise AssertionError(f"serve_chaos: counters {b.counters}")
+        if hook._fired != {"raise", "latency"}:
+            raise AssertionError(f"serve_chaos: fired {hook._fired}")
+        by_path["serve_chaos"] = counts
+        faulted = [(s, n) for s, n in steps if n > 1]
+        clean_steps = sorted(s for s, n in steps if n == 1)
+        chaos_fig[f"temperature_{temp}"] = {
+            "wall_s": wall, "dispatches_seen": hook.round,
+            "faulted_round_s_and_dispatches": faulted,
+            "clean_round_median_s": clean_steps[len(clean_steps) // 2],
+            "r0_tokens": len(res["r0"].tokens),
+            "r5_tokens": len(res["r5"].tokens), "counters": b.counters}
+        del eng
+    hook = ServingChaos(Config.from_dict({"resilience": POISON}).resilience)
+    eng = engine_for("serve_chaos", decode_block_len=KEYS_BLOCK, **POISON)
+    eng.hooks = hook
+    reqs = traffic()
+    res, b, *_ = run("serve_chaos", eng, reqs)
+    full("serve_chaos", reqs, res)
+    if "poison" not in hook._fired:
+        raise AssertionError("serve_chaos: the poison round never ran")
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B serve_chaos", "card": card,
+        "decode_block_len": KEYS_BLOCK, "faults": CHAOS,
+        "timeout_s": REQUEST_TIMEOUT, **chaos_fig,
+        "poison_round_counters": b.counters,
+        "launches": {k.name: by_path["serve_chaos"][k.name]
+                     for k in paths["serve_chaos"]}}), flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def _tenant_requests(np, vocab: int, tag: str, registry) -> list:
     """The tenancy phase's 10 requests in ``TENANT_TRAFFIC``'s order, each
     under its tenant's priority and adapter slot (``registry.resolve``),
@@ -2905,7 +3301,11 @@ def main() -> int:
              "serve_spec_learned": SERVING_KERNELS,
              "serve_spec_paged": SERVING_PAGED_KERNELS,
              "serve_spec_oracle": SERVING_KERNELS,
-             "serve_spec_offscript": SERVING_KERNELS}
+             "serve_spec_offscript": SERVING_KERNELS,
+             "serve_slot": SERVING_KERNELS,
+             "serve_slot_spec": SERVING_KERNELS,
+             "sample_on_device": SERVING_KERNELS,
+             "serve_chaos": SERVING_KERNELS}
     by_path.update(timed("serve_paged", lambda: _paged_serve_phase(
         torch, np, card, paths, KERNELS, keep=spec_off)))
     # 6. several tenants in one batch: the multi-LoRA path through H
@@ -2927,8 +3327,12 @@ def main() -> int:
     # controller, paged, and drafts that are phase 3's own streams
     by_path.update(timed("serve_spec", lambda: _spec_serve_phase(
         torch, np, card, paths, KERNELS, spec_off)))
+    # 11. the per-slot key schedule, sampling in the dispatch and the
+    # fault-tolerant serving round on phase 3's model
+    by_path.update(timed("serve_keys", lambda: _keys_and_faults_phase(
+        torch, np, card, paths, KERNELS, spec_off)))
 
-    # 11. the closing lines: each kernel's launches on its own path (the
+    # 12. the closing lines: each kernel's launches on its own path (the
     # first path that runs it: serving for A, B, C; each paged run for its
     # variant of C; the tenancy run for H; int8 serving for C-int8 and G;
     # training for D, E, F), and on each path

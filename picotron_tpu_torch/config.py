@@ -13,24 +13,20 @@ and ``tests/test_torch_config.py`` holds the port to it:
 
 - declared by a section below and read;
 - refused at load when set to a value the port does not behave as
-  (``REFUSED_AT_LOAD``): disaggregation roles, overlap, mixed dispatch, on-device sampling, dp sharding, the serving chaos hooks
-  (``resilience.chaos_dispatch_*``, ``chaos_latency_round``,
-  ``chaos_poison_logits_round``) and ``inference.key_schedule: "slot"``
-  (the port draws sampled tokens from one generator in batch order, a
-  per-round schedule);
+  (``REFUSED_AT_LOAD``): disaggregation roles, overlap, mixed dispatch
+  and dp sharding;
 - inert (``INERT_FIELDS``, each with its reason): the field changes
   nothing while the port runs as it does, for example
   ``distributed.use_cpu`` (the port runs on the card unless its caller
   passes ``device="cpu"``), ``pp_engine`` (pp = 1) or ``dataset.split``
   (the synthetic dataset).
 
-Two serving fields are declared and refused where serving starts
+One serving field is declared and refused where serving starts
 (``Config.check_servable``, called by ``InferenceEngine``), not at load:
-dispatch retries (``resilience.dispatch_attempts`` above 1: the port makes
-one attempt) and ``inference.attend_fallback: true`` (a kernel failure in
-the port raises). A training run reads neither, and the JAX package's own
-``to_dict`` writes both at its defaults (2 and true), so a dump of a JAX
-config loads here for training.
+``inference.attend_fallback: true`` (a kernel failure in the port
+raises). A training run does not read it, and the JAX package's own
+``to_dict`` writes it at its default (true), so a dump of a JAX config
+loads here for training.
 
 Besides, tenants or a tenant manifest (``inference.tenancy``) are refused
 by the generate CLI (only the JAX package's ``tools/serve.py`` reads them,
@@ -162,10 +158,10 @@ class ResilienceConfig:
     """The resilience the port has: the non-finite gate (a step with a
     non-finite loss or gradient norm changes neither the parameters nor
     the optimizer state), the SIGTERM/SIGINT flush, the final save on
-    exit, auto-resume and retried checkpoint I/O. The other fields are
-    read only so that ``check_trainable`` (training) or
-    ``check_servable`` (the dispatch attempts) can refuse a config that
-    turns them on."""
+    exit, auto-resume and retried checkpoint I/O; in serving, retried
+    dispatches with per-slot isolation and the serving chaos hooks. The
+    training chaos and anomaly fields are read only so that
+    ``check_trainable`` can refuse a config that turns them on."""
 
     nonfinite_guard: bool = True
     # SIGTERM/SIGINT -> finish the step, save, exit 75 (EXIT_PREEMPTED)
@@ -185,10 +181,12 @@ class ResilienceConfig:
     # the flush on a signal runs on a thread joined with this deadline
     # (0 = wait for it)
     emergency_save_timeout_s: float = 600.0
-    # serving: attempts per batcher dispatch. The port makes one and raises
-    # on a failure; check_servable refuses more (the JAX batcher retries,
-    # 2 attempts by default)
-    dispatch_attempts: int = 1
+    # serving: attempts per batcher dispatch (prefill, decode block,
+    # verify) before the batcher isolates the failure to the slots that
+    # fail alone (finish reason "error"), and the backoff before the
+    # second attempt in seconds (doubling per attempt)
+    dispatch_attempts: int = 2
+    dispatch_backoff: float = 0.05
     anomaly_policy: str = "skip"
     heartbeat_path: str = ""
     chaos_raise_step: int = 0
@@ -198,6 +196,16 @@ class ResilienceConfig:
     chaos_preempt_rank_at_step: str = ""
     chaos_kill_rank_at_step: str = ""
     chaos_stall_rank_at_step: str = ""
+    # serving chaos (resilience/chaos.py::ServingChaos, the engine's
+    # dispatch hooks; rounds are 1-indexed decode or verify dispatches, 0 =
+    # off): raise once before round N; raise at every dispatch with this
+    # slot active (-1 = off); sleep chaos_latency_s once before round N;
+    # NaN logits in round N's dispatch
+    chaos_dispatch_raise_round: int = 0
+    chaos_dispatch_fail_slot: int = -1
+    chaos_latency_round: int = 0
+    chaos_latency_s: float = 0.25
+    chaos_poison_logits_round: int = 0
 
 
 @dataclass
@@ -322,6 +330,20 @@ class InferenceConfig:
     # port raises on a kernel failure; check_servable refuses True (the
     # JAX default).
     attend_fallback: bool = False
+    # Sampling inside the dispatch: the prefill family takes (key,
+    # temperature, top_k, top_p) and returns the sampled token id, and
+    # decode_step returns no [B, V] logits (decode_block and verify always
+    # sample in the dispatch). The same key gives the same token either
+    # way.
+    sample_on_device: bool = False
+    # How sampled tokens are keyed: "round" = the batcher's one
+    # torch.Generator, drawn in round order; "slot" = one threefry base
+    # key per admitted request, the token at sequence index p keyed
+    # fold_in(base, p - 1), so a stream does not depend on how its tokens
+    # were grouped into rounds and equals the JAX package's token for
+    # token; "auto" = "slot" under overlap or mixed dispatch (both refused
+    # at load), else "round".
+    key_schedule: str = "auto"
 
     def __post_init__(self):
         # from_dict hands the nested sections through as dicts (unknown
@@ -340,22 +362,12 @@ class InferenceConfig:
 
 # (section, field) -> the values the port behaves as, for JAX fields the
 # port does not declare: any other value is refused at load. Inference
-# options of paths the port does not have yet; the JAX package's serving
-# chaos hooks (resilience.chaos.ServingChaos) at their "off" values; and
-# the per-round key schedule, which is what "auto" resolves to while
-# overlap and mixed dispatch are refused (the port draws every sampled
-# token of a round from one torch.Generator in batch order).
+# options of paths the port does not have yet.
 REFUSED_AT_LOAD = {
     ("inference", "role"): ("both",),
     ("inference", "dp_size"): (1,),
     ("inference", "overlap"): (False,),
     ("inference", "mixed_dispatch"): (False,),
-    ("inference", "sample_on_device"): (False,),
-    ("inference", "key_schedule"): ("auto", "round"),
-    ("resilience", "chaos_dispatch_raise_round"): (0,),
-    ("resilience", "chaos_dispatch_fail_slot"): (-1,),
-    ("resilience", "chaos_latency_round"): (0,),
-    ("resilience", "chaos_poison_logits_round"): (0,),
 }
 
 # (section, field) -> why the port may leave it unread: JAX fields that
@@ -414,14 +426,10 @@ INERT_FIELDS = {
                                       "'skip' (check_trainable)",
     ("resilience", "max_rollbacks"): "inert while anomaly_policy is 'skip' "
                                      "(check_trainable)",
-    ("resilience", "dispatch_backoff"): "inert while dispatch_attempts is "
-                                        "1 (check_servable)",
     ("resilience", "consensus_interval"): _ONE_HOST,
     ("resilience", "peer_timeout_s"): _ONE_HOST,
     ("resilience", "lease_interval_s"): _ONE_HOST,
     ("resilience", "cluster_dir"): _ONE_HOST,
-    ("resilience", "chaos_latency_s"): "inert while chaos_latency_round is "
-                                       "0 (refused otherwise)",
     ("resilience", "chaos_stall_rank_s"): "inert while "
                                           "chaos_stall_rank_at_step is "
                                           "empty (check_trainable)",
@@ -522,21 +530,15 @@ class Config:
 
     def check_servable(self) -> None:
         """Refuse, with a clear message, a config whose serving asks for
-        what the port's engine and batcher do not do: retried dispatches
-        (``resilience.dispatch_attempts`` above 1; the port makes one
-        attempt and raises) or the dense rebuild after a kernel failure
+        the dense rebuild after a kernel failure
         (``inference.attend_fallback``; the port raises). Called by
-        ``InferenceEngine``. A training run reads neither, so the load
-        takes them: the JAX package's own ``to_dict`` writes its defaults,
-        2 and true."""
-        r, inf = self.resilience, self.inference
-        for section, name, value, only in (
-                ("resilience", "dispatch_attempts", r.dispatch_attempts, 1),
-                ("inference", "attend_fallback", inf.attend_fallback, False)):
-            if value != only:
-                raise ValueError(
-                    f"{section}.{name}={value!r} is not in the PyTorch port "
-                    f"yet (it serves {name}={only!r} only)")
+        ``InferenceEngine``. A training run does not read it, so the load
+        takes it: the JAX package's own ``to_dict`` writes its default,
+        true."""
+        if self.inference.attend_fallback:
+            raise ValueError(
+                "inference.attend_fallback=True is not in the PyTorch port "
+                "yet (it serves attend_fallback=False only)")
 
     def validate(self) -> None:
         """The JAX package's checks, with its messages, for the fields the
@@ -581,9 +583,20 @@ class Config:
         if t.grad_accum_dtype not in ("float32", "param"):
             raise ValueError(
                 f"unknown grad_accum_dtype {t.grad_accum_dtype!r} (float32|param)")
-        if self.resilience.dispatch_attempts < 1:
-            raise ValueError("dispatch_attempts must be >= 1")
         r = self.resilience
+        if r.dispatch_attempts < 1:
+            raise ValueError("dispatch_attempts must be >= 1")
+        if r.dispatch_backoff < 0:
+            raise ValueError("dispatch_backoff must be >= 0")
+        for name in ("chaos_dispatch_raise_round", "chaos_latency_round",
+                     "chaos_poison_logits_round"):
+            if getattr(r, name) < 0:
+                raise ValueError(f"{name} must be >= 0 (0 = off)")
+        if r.chaos_dispatch_fail_slot < -1:
+            raise ValueError(
+                "chaos_dispatch_fail_slot must be >= -1 (-1 = off)")
+        if r.chaos_latency_s < 0:
+            raise ValueError("chaos_latency_s must be >= 0")
         if r.io_attempts < 1:
             raise ValueError("io_attempts must be >= 1")
         if r.io_backoff < 0 or r.io_jitter < 0:
@@ -599,10 +612,19 @@ class Config:
             raise ValueError("inference.decode_block_len must be >= 1")
         if inf.prefill_chunk < 1:
             raise ValueError("inference.prefill_chunk must be >= 1")
+        if not isinstance(inf.sample_on_device, bool):
+            raise ValueError(
+                f"inference.sample_on_device must be a JSON boolean "
+                f"(true/false), got {inf.sample_on_device!r} — quoted "
+                f"'true'/'false' strings are not parsed as booleans")
         if inf.attend_impl not in ("dense", "flash"):
             raise ValueError(
                 f"unknown inference.attend_impl {inf.attend_impl!r} "
                 "(dense|flash)")
+        if inf.key_schedule not in ("auto", "round", "slot"):
+            raise ValueError(
+                f"unknown inference.key_schedule {inf.key_schedule!r} "
+                "(auto|round|slot)")
         if inf.weight_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"unknown inference.weight_dtype {inf.weight_dtype!r} "

@@ -44,12 +44,33 @@ is a decode block. ``draft_proposed``, ``draft_accepted`` and
 ``accept_rate`` count the drafts.
 
 Free slots still ride through the decode block (fixed shapes); they carry
-a zero budget at length 0 and their outputs are ignored. One
-``torch.Generator`` seeded from ``seed`` draws every sampled token.
+a zero budget at length 0 and their outputs are ignored. Sampled tokens are
+keyed by the engine's ``key_schedule``: on "round" one ``torch.Generator``
+seeded from ``seed`` draws every sampled token in round order; on "slot"
+each admission takes one ``prng.split`` of a ``PRNGKey(seed)`` chain as
+its slot's base key, and the token at sequence index ``p`` is keyed
+``fold_in(base, p - 1)`` (the first token from the prefill logits, the
+rest in the dispatches), so a stream is the same at any
+``decode_block_len`` and under speculation, and the JAX package's.
 
-Not ported yet: request deadlines, dispatch retry and slot isolation,
-overlap, the mixed prefill lane and the ``picotron_tenant_*`` and
-``picotron_spec_*`` metric families.
+Faults: every dispatch (a prefill, a decode block, a verify) is retried
+(``resilience.dispatch_attempts``, ``dispatch_backoff``). A prefill that
+still fails finishes only its request (reason "error", no tokens). A round
+that still fails is isolated: each occupied slot is dispatched alone, the
+others' budgets masked to 0, from the state the group round started from
+(the engine restores what a failed dispatch advanced, and the batcher
+rewinds the generator before each solo dispatch), so the slots that
+succeed alone emit the bits of a fault-free round and the ones that fail
+alone finish "error". A failure whose state could not be restored
+(``engine.CacheLost``) empties the cache: every occupied slot finishes
+"error" and the queue is served on. A CUDA error that leaves the device
+unusable is not retried: it raises out of ``step()``. A request with
+``timeout_s`` finishes "timeout" once that long has passed since its
+admission, at the start of a round, and its slot is refilled in the same
+round.
+
+Not ported yet: overlap, the mixed prefill lane and the
+``picotron_tenant_*`` and ``picotron_spec_*`` metric families.
 """
 
 from __future__ import annotations
@@ -62,7 +83,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from picotron_tpu_torch.inference import sampling
+from picotron_tpu_torch.inference import prng, sampling
+from picotron_tpu_torch.inference.engine import CacheLost
 from picotron_tpu_torch.inference.speculative import (
     DispatchLatency,
     LearnedDrafter,
@@ -71,12 +93,34 @@ from picotron_tpu_torch.inference.speculative import (
 )
 from picotron_tpu_torch.inference.kv_cache import cache_bytes
 from picotron_tpu_torch.models.llama import param_bytes
+from picotron_tpu_torch.resilience.retry import retry
+from picotron_tpu_torch.utils import log0
+
+
+def device_lost(e: BaseException) -> bool:
+    """Whether ``e`` is a CUDA error that leaves the device unusable to
+    this process (a sticky error such as an illegal address): no retry or
+    re-dispatch can succeed after it."""
+    fatal = getattr(torch, "AcceleratorError", None)
+    return ((fatal is not None and isinstance(e, fatal))
+            or (isinstance(e, RuntimeError) and "CUDA error" in str(e)))
+
+
+def _unretryable(e: BaseException) -> bool:
+    return isinstance(e, CacheLost) or device_lost(e)
+
+
+def _log_dispatch_failure(kind: str, ident, e: BaseException) -> None:
+    log0(f"serving: {kind} dispatch failed for {ident} "
+         f"({type(e).__name__}: {e})", flush=True)
 
 
 @dataclass
 class Request:
     """One generation request. ``temperature == 0`` = greedy; ``top_k <= 0``
-    and ``top_p >= 1`` disable those filters."""
+    and ``top_p >= 1`` disable those filters. ``timeout_s`` is a wall-clock
+    budget from admission: past it the request finishes with reason
+    "timeout" and frees its slot (None = no deadline)."""
 
     uid: str
     prompt: list
@@ -85,6 +129,7 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     eos_id: Optional[int] = None
+    timeout_s: Optional[float] = None
     # ---- multi-tenant serving (inference/tenancy.py) ----------------------
     # tenant name ("" = anonymous base traffic: the null adapter, the
     # default radix domain, class-1 priority, no SLOs)
@@ -106,7 +151,9 @@ class GenerationResult:
     uid: str
     prompt: list
     tokens: list  # generated ids, EOS included when hit
-    finish_reason: str  # "eos" | "length" | "shed"
+    # "eos" | "length" | "timeout" | "shed" (dropped unstarted) | "error"
+    # (a dispatch failure isolated to this request)
+    finish_reason: str
     queue_wait_s: Optional[float] = None  # submit -> admit
     ttft_s: Optional[float] = None  # submit -> first token
     dispatches: int = 0  # decode or verify rounds its slot took part in
@@ -120,6 +167,7 @@ class GenerationResult:
 class _Slot:
     req: Request
     generated: list = field(default_factory=list)
+    deadline: Optional[float] = None  # clock() time after which it retires
     submit_t: Optional[float] = None
     queue_wait_s: Optional[float] = None
     ttft_s: Optional[float] = None
@@ -135,15 +183,25 @@ class ContinuousBatcher:
 
     ``params`` must live on the engine's device. One batcher owns one
     cache. ``drafter`` replaces the configured drafter of a speculative
-    engine (a scripted one in tests).
+    engine (a scripted one in tests). ``clock`` (deadlines, latencies) and
+    ``sleep`` (the retry backoff) are injectable for tests.
     """
 
     def __init__(self, engine, params, seed: int = 0, clock=time.monotonic,
-                 drafter=None):
+                 drafter=None, sleep=time.sleep):
         self.engine = engine
         self.params = params
         self._clock = clock
+        # the round schedule's draws; the slot schedule's base keys come
+        # from the threefry chain, one split per admission
         self._gen = torch.Generator(device=engine.device).manual_seed(seed)
+        self._slot_keys = engine.key_schedule == "slot"
+        self._key = prng.PRNGKey(seed)
+        r = engine.cfg.resilience
+        self._retry = dict(attempts=r.dispatch_attempts,
+                           backoff=r.dispatch_backoff,
+                           desc="serving dispatch", sleep=sleep,
+                           fatal=_unretryable)
         inf = engine.cfg.inference
         if drafter is None and engine.spec_len > 0:
             if engine.drafter_kind == "learned":
@@ -188,6 +246,8 @@ class ContinuousBatcher:
         self._top_p = np.ones(n, np.float32)
         self._eos = np.full(n, -1, np.int32)
         self._budget = np.zeros(n, np.int32)
+        # the slot schedule's per-slot base keys (uint32 words)
+        self._base_keys = np.zeros((n, 2), np.int64)
         # per-slot adapter pack slots, one row per decode block on an
         # engine with a pack; 0 (the null adapter) for free and base slots
         self._adapter = np.zeros(n, np.int32)
@@ -195,7 +255,10 @@ class ContinuousBatcher:
         self._tenant_stats: dict = {}
         # prompt tokens admitted this scheduler round (_prefill_gate)
         self._round_prefill_tokens = 0
-        # lifetime counters (bench + tests)
+        # lifetime counters (bench + tests); every submitted request ends in
+        # exactly one terminal state (completed = eos or length)
+        self.counters = {"admitted": 0, "completed": 0, "expired": 0,
+                         "errored": 0, "shed": 0}
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.generated_tokens = 0
@@ -347,14 +410,16 @@ class ContinuousBatcher:
     def _shed(self, req: Request) -> None:
         """Finish a queued request unstarted (reason "shed", no tokens)."""
         self._submit_t.pop(req.uid, None)
+        self.counters["shed"] += 1
         self._tstat(req)["shed"] += 1
         self._results[req.uid] = GenerationResult(
             req.uid, list(req.prompt), [], "shed")
 
     def stats(self) -> dict:
         """Serving counters (the JAX batcher's ``/statz`` fields that the
-        port has), with the resident bytes of the weights and the cache
-        that int8 storage shrinks; on the paged layout, the pool's
+        port has, the request accounting of ``counters`` among them), with
+        the resident bytes of the weights and the cache that int8 storage
+        shrinks; on the paged layout, the pool's
         occupancy and the prefix cache's counters too; with tenants, each
         tenant's tally under ``"tenants"`` (requests admitted, tokens
         emitted, requests shed, admissions the prefill gate deferred or
@@ -363,6 +428,7 @@ class ContinuousBatcher:
         was proposed, ``accept_rate``; with a controller its decisions
         under ``spec_controller``)."""
         d = {
+            **self.counters,
             "decode_dispatches": self.decode_dispatches,
             "prefill_dispatches": self.prefill_dispatches,
             "generated_tokens": self.generated_tokens,
@@ -404,8 +470,12 @@ class ContinuousBatcher:
 
     # ---- one scheduler round ----------------------------------------------
 
+    _TERMINAL = {"eos": "completed", "length": "completed",
+                 "timeout": "expired", "error": "errored"}
+
     def _finish(self, i: int, reason: str) -> None:
         s = self._slots[i]
+        self.counters[self._TERMINAL[reason]] += 1
         spec_len = drafter_kind = None
         if self.engine.spec_len > 0:
             if self.controller is not None:
@@ -457,12 +527,25 @@ class ContinuousBatcher:
         else:
             self._last_tok[i] = tok
 
-    def _prefill_into(self, req: Request, i: int) -> torch.Tensor:
+    def _split(self) -> torch.Tensor:
+        """The next key of the ``PRNGKey(seed)`` chain (one per
+        admission)."""
+        self._key, sub = prng.split(self._key)
+        return sub
+
+    def _retried(self, fn):
+        """``fn()`` under the dispatch retry budget."""
+        return retry(fn, **self._retry)
+
+    def _prefill_into(self, req: Request, i: int, key=None):
         """Prefill ``req`` into slot ``i`` (one-shot or chunked) under its
-        adapter slot; return its last-token logits [1, V]. On a
-        ``return_hidden`` engine the prompt's last hidden state seeds the
-        slot's drafting row."""
+        adapter slot; return its last-token logits [1, V], or on a
+        ``sample_on_device`` engine the first token [1] drawn in the
+        dispatch with ``key``. On a ``return_hidden`` engine the prompt's
+        last hidden state seeds the slot's drafting row."""
         eng = self.engine
+        sample = ((key, req.temperature, req.top_k, req.top_p)
+                  if eng.sample_on_device else None)
         # an engine without a pack takes no ids and runs as without tenancy
         adapter = (int(req.adapter_slot) if eng.adapters is not None
                    else None)
@@ -470,18 +553,20 @@ class ContinuousBatcher:
             self.paged.priced[i] = self.page_commitment(req)
             out = eng.prefill_paged(
                 self.params, self._cache, req.prompt, i, adapter_id=adapter,
-                cache_salt=req.tenant)
+                cache_salt=req.tenant, sample=sample)
             self._cache, logits, n = out[:3]
             hidden = out[4:]
             self.prefill_dispatches += n
         elif len(req.prompt) > eng.prefill_chunk:
             out = eng.prefill_chunked(
-                self.params, self._cache, req.prompt, i, adapter_id=adapter)
+                self.params, self._cache, req.prompt, i, adapter_id=adapter,
+                sample=sample)
             self._cache, logits = out[:2]
             hidden = out[2:]
             self.prefill_dispatches += -(-len(req.prompt) // eng.prefill_chunk)
         else:
-            out = eng.prefill(self.params, req.prompt, adapter_id=adapter)
+            out = eng.prefill(self.params, req.prompt, adapter_id=adapter,
+                              sample=sample)
             kv, logits = out[:2]
             hidden = out[2:]
             self._cache = eng.insert(self._cache, kv, i, len(req.prompt))
@@ -500,12 +585,46 @@ class ContinuousBatcher:
             if req is None:
                 return
             submit_t = self._submit_t.pop(req.uid, None)
-            logits = self._prefill_into(req, i)
-            self._round_prefill_tokens += len(req.prompt)
+            # the first token's key: the round schedule's generator, or the
+            # slot's base key (one split of the chain per admission, taken
+            # before the prefill, so a failed one still spends its link)
+            # folded with the prompt's last row
+            if self._slot_keys:
+                self._base_keys[i] = self._split().numpy()
+                key = prng.fold_in(self._base_keys[i], len(req.prompt) - 1)
+            else:
+                key = self._gen
+            gen_state = self._gen.get_state()
+
+            def attempt():
+                try:
+                    return self._prefill_into(req, i, key)
+                except BaseException:
+                    # a sample_on_device attempt may have drawn already
+                    self._gen.set_state(gen_state)
+                    raise
+
+            self.counters["admitted"] += 1
             self._tstat(req)["requests"] += 1
-            slot = _Slot(req, submit_t=submit_t)
+            try:
+                logits = self._retried(attempt)
+            except Exception as e:  # noqa: BLE001 - isolated to this request
+                if device_lost(e):
+                    raise
+                # the request never held the slot: release what a partial
+                # prefill left there; everyone admitted decodes on
+                _log_dispatch_failure("prefill", req.uid, e)
+                self.counters["errored"] += 1
+                self._results[req.uid] = GenerationResult(
+                    req.uid, list(req.prompt), [], "error")
+                self._cache = self.engine.release(self._cache, i)
+                continue
+            self._round_prefill_tokens += len(req.prompt)
+            now = self._clock()
+            slot = _Slot(req, submit_t=submit_t, deadline=(
+                now + req.timeout_s if req.timeout_s is not None else None))
             if submit_t is not None:
-                slot.queue_wait_s = self._clock() - submit_t
+                slot.queue_wait_s = now - submit_t
             self._slots[i] = slot
             self._adapter[i] = (req.adapter_slot
                                 if self.engine.adapters is not None else 0)
@@ -521,12 +640,21 @@ class ContinuousBatcher:
             self._top_k[i] = req.top_k
             self._top_p[i] = req.top_p
             self._eos[i] = req.eos_id if req.eos_id is not None else -1
-            first = sampling.sample(
-                logits, self._gen,
-                torch.tensor([req.temperature], dtype=torch.float32,
-                             device=dev),
-                torch.tensor([req.top_k], dtype=torch.int32, device=dev),
-                torch.tensor([req.top_p], dtype=torch.float32, device=dev))
+            if self.engine.sample_on_device:
+                first = logits  # drawn in the dispatch
+            else:
+                args = (torch.tensor([req.temperature], dtype=torch.float32,
+                                     device=dev),
+                        torch.tensor([req.top_k], dtype=torch.int32,
+                                     device=dev),
+                        torch.tensor([req.top_p], dtype=torch.float32,
+                                     device=dev))
+                if self._slot_keys:
+                    first = sampling.sample_rowkeys(
+                        logits, key[None], *args,
+                        greedy_only=req.temperature <= 0)
+                else:
+                    first = sampling.sample(logits, self._gen, *args)
             self._token_done(i, int(first[0]))
 
     def _pick(self) -> int:
@@ -591,6 +719,15 @@ class ContinuousBatcher:
             return req
         return None
 
+    def _expire_deadlines(self) -> None:
+        """Retire every slot past its deadline with reason "timeout". Runs
+        first in a round, so the freed slot is refilled in the same
+        round."""
+        now = self._clock()
+        for i, s in enumerate(self._slots):
+            if s is not None and s.deadline is not None and now >= s.deadline:
+                self._finish(i, "timeout")
+
     def _plan_spec(self) -> tuple:
         """Each slot's draft length and drafter kind for the next round, or
         (None, None) when the controller has turned every occupied slot
@@ -615,7 +752,8 @@ class ContinuousBatcher:
 
     def _merge_hidden(self, hid, counts) -> None:
         """Fold one dispatch's hidden rows into the slots' drafting rows:
-        only slots that emitted tokens move."""
+        only slots that emitted tokens move (a solo re-dispatch moves its
+        own row)."""
         if self._hidden is not None and hid is not None:
             moved = torch.as_tensor(np.asarray(counts) > 0).to(hid.device)
             self._hidden = torch.where(moved[:, None], hid, self._hidden)
@@ -655,64 +793,167 @@ class ContinuousBatcher:
                 tokens[i, 1: 1 + gi] = d.propose(hist, gi)
         return tokens
 
-    def _spec_account(self, lens, accepted, budget) -> None:
+    def _spec_account(self, lens, accepted, budget, failed) -> None:
         """One verify round's draft counts: the lifetime totals and the
-        controller's per-slot record."""
+        controller's per-slot record (failed slots proposed nothing that
+        was verified)."""
         for i, s in enumerate(self._slots):
-            if s is None or budget[i] <= 0 or lens[i] == 0:
+            if s is None or i in failed or budget[i] <= 0 or lens[i] == 0:
                 continue
-            gi, acc = int(lens[i]), int(accepted[i])
+            gi = int(lens[i])
+            acc = int(accepted[i]) if accepted is not None else 0
             self.draft_proposed += gi
             self.draft_accepted += acc
             if self.controller is not None:
                 self.controller.record(i, gi, acc)
 
+    def _keys_arg(self):
+        """The dispatch's key operand: the slots' base keys, or the round
+        schedule's generator."""
+        return self._base_keys if self._slot_keys else self._gen
+
     def _spec_round(self, budget, lens, kinds) -> tuple:
         """One draft-verify round: the drafts (``_draft``), one
-        ``engine.verify`` dispatch over them, ragged at ``lens``, and the
-        draft counts. Returns (emitted [slots, spec_len + 1], counts
-        [slots]) on the host."""
-        t0 = self._clock()
+        ``engine.verify`` dispatch over them, ragged at ``lens`` and
+        fault-isolated like a decode round, and the draft counts. Returns
+        (emitted [slots, spec_len + 1], counts [slots], failed slots) on
+        the host."""
         tokens = self._draft(lens, kinds)
-        t1 = self._clock()
-        out = self.engine.verify(
-            self.params, self._cache, tokens, self._gen, self._eos, budget,
-            self._temp, self._top_k, self._top_p, draft_len=lens,
-            adapter_ids=(self._adapter if self.engine.adapters is not None
-                         else None))
-        self._cache, emitted, counts, accepted = out[:4]
-        emitted, counts = emitted.cpu().numpy(), counts.cpu().numpy()
-        accepted = accepted.cpu().numpy()
-        self._merge_hidden(out[4] if len(out) > 4 else None, counts)
-        t2 = self._clock()
-        self.latency.observe("verify", t2 - t1)
-        self.decode_seconds += t2 - t0
-        self._spec_account(lens, accepted, budget)
-        return emitted, counts
+
+        def dispatch(b):
+            t0 = self._clock()
+            out = self.engine.verify(
+                self.params, self._cache, tokens, self._keys_arg(),
+                self._eos, b, self._temp, self._top_k, self._top_p,
+                draft_len=lens,
+                adapter_ids=(self._adapter if self.engine.adapters is not None
+                             else None))
+            self._cache, emitted, counts, accepted = out[:4]
+            emitted, counts = emitted.cpu().numpy(), counts.cpu().numpy()
+            accepted = accepted.cpu().numpy()
+            # the slot program's next-token output is the overlap
+            # pipeline's; here the host walk keeps _last_tok
+            hid = out[-1] if self.engine.return_hidden else None
+            self._merge_hidden(hid, counts)
+            self.decode_dispatches += 1
+            self.latency.observe("verify", self._clock() - t0)
+            return emitted, counts, accepted
+
+        emitted, counts, accepted, failed = self._guarded_round(dispatch,
+                                                                budget)
+        self._spec_account(lens, accepted, budget, failed)
+        return emitted, counts, failed
 
     def _decode_round(self, budget) -> tuple:
-        """One ``decode_block`` dispatch. Returns (tokens [slots, block],
-        counts [slots]) on the host."""
-        t0 = self._clock()
-        out = self.engine.decode_block(
-            self.params, self._cache, self._last_tok, self._gen, self._eos,
-            budget, self._temp, self._top_k, self._top_p,
-            adapter_ids=(self._adapter if self.engine.adapters is not None
-                         else None))
-        self._cache, toks, counts = out[:3]
-        toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
-        self._merge_hidden(out[3] if len(out) > 3 else None, counts)
-        dt = self._clock() - t0
-        self.latency.observe("decode", dt)
-        self.decode_seconds += dt
-        return toks, counts
+        """One ``decode_block`` round, fault-isolated. Returns (tokens
+        [slots, block], counts [slots], failed slots) on the host."""
+
+        def dispatch(b):
+            t0 = self._clock()
+            out = self.engine.decode_block(
+                self.params, self._cache, self._last_tok, self._keys_arg(),
+                self._eos, b, self._temp, self._top_k, self._top_p,
+                adapter_ids=(self._adapter if self.engine.adapters is not None
+                             else None))
+            self._cache, toks, counts = out[:3]
+            toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
+            hid = out[-1] if self.engine.return_hidden else None
+            self._merge_hidden(hid, counts)
+            self.decode_dispatches += 1
+            self.latency.observe("decode", self._clock() - t0)
+            return toks, counts, None
+
+        toks, counts, _, failed = self._guarded_round(dispatch, budget)
+        return toks, counts, failed
+
+    # ---- dispatch fault recovery ------------------------------------------
+
+    def _cache_lost(self) -> None:
+        """A failed dispatch left the cache unrestorable: every parked
+        sequence is gone, so every occupied slot finishes "error" and the
+        cache is emptied in place; the queue is served on."""
+        self._cache = self.engine.reset_cache(self._cache)
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                self._finish(i, "error")
+
+    def _guarded_round(self, dispatch, budget) -> tuple:
+        """Run one decode or verify round with fault recovery.
+
+        ``dispatch(budget) -> (toks [n, S], counts [n], aux [n] | None)``
+        runs the round for the slots whose budget row is nonzero (free
+        slots always carry 0). The happy path is one retried call. If it
+        still fails, the round is isolated: each occupied slot is
+        dispatched alone (every other budget masked to 0) from the state
+        the round started from, its generator state included, with the
+        same keys and tokens. A row's logits see only its own slot's cache
+        and its draw is the same at the same [slots, V] shape, so the
+        slots that succeed alone emit a fault-free round's bits; the ones
+        that fail alone come back in ``failed`` (the caller retires them
+        "error"). After isolation the generator stands where a successful
+        dispatch of the round left it. A lost cache ends the round through
+        ``_cache_lost``; a lost device raises.
+
+        Returns (toks, counts, aux, failed); the counts of failed and
+        retired slots are 0."""
+        gen0 = self._gen.get_state()
+        try:
+            toks, counts, aux = self._retried(lambda: dispatch(budget))
+            return toks, counts, aux, []
+        except Exception as e:  # noqa: BLE001 - recovered below or raised
+            if device_lost(e):
+                raise
+            _log_dispatch_failure("round", "the active slots", e)
+            lost = isinstance(e, CacheLost)
+        n = len(self._slots)
+        empty = (np.zeros((n, 1), np.int32), np.zeros(n, np.int64), None)
+        if lost:
+            self._cache_lost()
+            return (*empty, [])
+        toks_out = aux_out = None
+        counts_out = np.zeros(n, np.int64)
+        failed: list = []
+        gen_end = None
+        for i in range(n):
+            if self._slots[i] is None or budget[i] <= 0:
+                continue
+            solo = np.zeros_like(budget)
+            solo[i] = budget[i]
+            self._gen.set_state(gen0)
+            try:
+                t, c, a = self._retried(lambda: dispatch(solo))
+            except Exception as e:  # noqa: BLE001 - isolated to slot i
+                if device_lost(e):
+                    raise
+                _log_dispatch_failure("solo", f"slot {i}", e)
+                if isinstance(e, CacheLost):
+                    self._gen.set_state(gen0)
+                    self._cache_lost()
+                    return (*empty, [])
+                failed.append(i)
+                continue
+            gen_end = self._gen.get_state()
+            if toks_out is None:
+                toks_out = np.zeros_like(t)
+                aux_out = None if a is None else np.zeros_like(a)
+            toks_out[i] = t[i]
+            counts_out[i] = c[i]
+            if a is not None:
+                aux_out[i] = a[i]
+        self._gen.set_state(gen0 if gen_end is None else gen_end)
+        if toks_out is None:  # every occupied slot failed alone
+            toks_out = empty[0]
+        return toks_out, counts_out, aux_out, failed
 
     def step(self) -> None:
-        """Admit waiting requests into free slots, then advance every
-        occupied slot by one decode block (or, on a speculative engine,
-        one draft-verify round, ragged under the controller, or a decode
-        block once the controller has turned every occupied slot off) and
-        retire the finished ones."""
+        """Retire overdue slots, admit waiting requests into free slots,
+        then advance every occupied slot by one decode block (or, on a
+        speculative engine, one draft-verify round, ragged under the
+        controller, or a decode block once the controller has turned every
+        occupied slot off), retire the slots whose dispatches failed alone
+        and walk the emitted tokens. An engine fault never raises out of
+        here, unless it lost the device."""
+        self._expire_deadlines()
         self._admit()
         if not any(s is not None for s in self._slots):
             return
@@ -722,18 +963,22 @@ class ContinuousBatcher:
         lens = kinds = None
         if self.engine.spec_len > 0:
             lens, kinds = self._plan_spec()
+        t0 = self._clock()
         if lens is not None:
-            toks, counts = self._spec_round(budget, lens, kinds)
+            toks, counts, failed = self._spec_round(budget, lens, kinds)
         else:
-            toks, counts = self._decode_round(budget)
-        self.decode_dispatches += 1
+            toks, counts, failed = self._decode_round(budget)
+        self.decode_seconds += self._clock() - t0
         for i, s in enumerate(self._slots):
-            if s is not None and budget[i] > 0:
+            if s is not None and budget[i] > 0 and i not in failed:
                 s.dispatches += 1
                 if self.controller is not None:
                     # after this round's counts landed; idle slots advance
                     # their cooloff
                     self.controller.after_round(i)
+        for i in failed:
+            if self._slots[i] is not None:
+                self._finish(i, "error")
         for i, s in enumerate(self._slots):
             if s is None:
                 continue

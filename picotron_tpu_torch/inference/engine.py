@@ -17,6 +17,8 @@ Port of the serving subset of ``picotron_tpu/inference/engine.py``:
 - ``prefill_paged(params, cache, prompt, slot)``: the paged layout's
   admission: share the longest radix-cached prefix of the prompt and
   prefill only the rest.
+- ``decode_step(...)``: one round-keyed step for every slot, returning
+  the step's logits (none on a ``sample_on_device`` engine).
 - ``verify(...)``: the speculative draft-verify pass (``spec_len > 0``):
   each slot's last token and its ``spec_len`` drafts in one model pass
   over [slots, spec_len + 1] rows, the acceptance rule, EOS and budget,
@@ -45,6 +47,26 @@ dispatch binds its rows' adapter slots into the parameter tree
 adds its rows' LoRA residuals through kernel H. An engine without a pack
 binds nothing.
 
+Sampled tokens are keyed by ``key_schedule``: "round" draws from the
+caller's ``torch.Generator`` in round order; "slot" takes per-slot base
+keys ``[slots, 2]`` and draws the token after row ``p`` of a slot with
+``prng.fold_in(base, p)`` (``sampling.sample_rowkeys``; the verify's
+acceptance is ``sampling.speculative_match``), so a stream is the same
+whatever rounds made it, and the JAX package's token for token. With
+``sample_on_device`` the prefill family takes ``sample=(key,
+temperature, top_k, top_p)`` and returns the sampled token id in place of
+the logits.
+
+Dispatches are atomic for a retry: ``decode_step``, ``decode_block`` and
+``verify`` restore what they advance (the cache lengths, the paged host
+lengths, the generator's state) when they raise, so a second attempt
+starts from what the first one saw; K/V rows a failed attempt wrote lie
+past the restored lengths, masked. A restore that itself fails raises
+``CacheLost``. ``hooks`` (``resilience.chaos.ServingChaos``, or any
+object with ``before_dispatch(kind, active_slots)`` and
+``poison_logits(kind)``) sees every dispatch first and may raise, sleep
+or turn the dispatch's logits to NaN.
+
 The JAX package compiles each of these as one jitted program with
 ``lax.scan`` over layers and steps; here they are Python loops that
 launch kernels eagerly. There is no flash-to-dense fallback: a kernel
@@ -53,16 +75,30 @@ failure raises.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from picotron_tpu_torch.config import Config
-from picotron_tpu_torch.inference import kv_cache, paged_kv, sampling, tenancy
+from picotron_tpu_torch.inference import (
+    kv_cache,
+    paged_kv,
+    prng,
+    sampling,
+    tenancy,
+)
 from picotron_tpu_torch.models import llama
 from picotron_tpu_torch.ops.rope import precompute_rope, rope_at_positions
 from picotron_tpu_torch.utils import resolve_device, torch_dtype
 
 MIN_PREFILL_BUCKET = 16  # the smallest power-of-two prompt bucket
+
+
+class CacheLost(RuntimeError):
+    """A dispatch failed and the state it advances could not be restored:
+    the cache's lengths no longer say which rows hold what, so every
+    parked sequence is lost (the batcher empties the cache and serves on)."""
 
 
 class InferenceEngine:
@@ -79,10 +115,11 @@ class InferenceEngine:
     can turn cache quantization off as well as on. The KV layout and its
     pages (``kv_layout``, ``kv_page_len``, ``kv_num_pages``,
     ``prefix_cache``, ``kv_page_policy``) come from ``cfg.inference``
-    alone. ``device=None`` is the CUDA card (and raises without one); pass
+    alone, ``sample_on_device`` and ``key_schedule`` from it unless given.
+    ``device=None`` is the CUDA card (and raises without one); pass
     ``device="cpu"`` for the plain PyTorch path on the CPU. ``adapters``
     (a ``tenancy.AdapterPack`` built for this model) makes it a
-    multi-tenant engine.
+    multi-tenant engine; ``hooks`` see every dispatch (module docstring).
     """
 
     def __init__(self, cfg: Config, device=None, *, slots: int = 8,
@@ -95,7 +132,9 @@ class InferenceEngine:
                  spec_len: int | None = None,
                  spec_ngram: int | None = None,
                  drafter: str | None = None,
-                 return_hidden: bool | None = None):
+                 return_hidden: bool | None = None,
+                 sample_on_device: bool | None = None,
+                 key_schedule: str | None = None, hooks=None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
         self.cfg.check_servable()
         self.device = resolve_device(device)
@@ -149,6 +188,19 @@ class InferenceEngine:
                     f"unknown weight_dtype {weight_dtype!r} (bf16|int8)")
             inf.weight_dtype = weight_dtype
         self.weight_dtype = inf.weight_dtype
+        if sample_on_device is not None:
+            inf.sample_on_device = bool(sample_on_device)
+        self.sample_on_device = inf.sample_on_device
+        if key_schedule is not None:
+            inf.key_schedule = key_schedule
+        ks = inf.key_schedule
+        if ks not in ("auto", "round", "slot"):
+            raise ValueError(
+                f"unknown key_schedule {ks!r} (auto|round|slot)")
+        # as the JAX engine resolves it: "auto" is "slot" under overlap or
+        # mixed dispatch, which the port refuses at load
+        self.key_schedule = "round" if ks == "auto" else ks
+        self.hooks = hooks
         self._dt = torch_dtype(m.dtype)
         if cache_dtype is None:
             cache_dtype = inf.kv_cache_dtype
@@ -244,6 +296,94 @@ class InferenceEngine:
             self.paged.free_slot(slot)
             cache = self._sync_tables(cache)
         return kv_cache.release(cache, slot)
+
+    def reset_cache(self, cache: dict) -> dict:
+        """Empty every slot of ``cache`` in place: lengths to 0 and, on the
+        paged layout, every page back to the pool (the radix cache
+        cleared, the tables NULL). The batcher's path after a lost cache:
+        the buffers stay allocated, and no row is reachable until it is
+        written again."""
+        if self.paged is not None:
+            self.paged.radix.clear()
+            for s in range(self.slots):
+                self.paged.free_slot(s)
+            cache = self._sync_tables(cache)
+        cache["lengths"].zero_()
+        return cache
+
+    # ---- dispatch hooks, sampling in the dispatch, atomic dispatches -------
+
+    def _hook(self, kind: str, budget=None) -> None:
+        """Fire the before-dispatch hook with the active slots (``budget >
+        0`` rows; a dispatch without a budget reports none)."""
+        if self.hooks is None:
+            return
+        slots = ([] if budget is None
+                 else np.flatnonzero(np.asarray(budget) > 0).tolist())
+        self.hooks.before_dispatch(kind, slots)
+
+    def _poison(self, kind: str) -> bool:
+        """Whether this dispatch's logits come back NaN (chaos only)."""
+        return self.hooks is not None and self.hooks.poison_logits(kind)
+
+    @contextlib.contextmanager
+    def _restoring(self, cache: dict, generator=None):
+        """Undo what a dispatch advances if it raises: ``cache['lengths']``
+        (the dispatches replace the tensor and never write into it, so the
+        old one is the snapshot), the paged host lengths and
+        ``generator``'s state. Pages the dispatch allocated or copied stay
+        the slot's own, so a second attempt plans no copy twice."""
+        lengths = cache["lengths"]
+        host_len = (self.paged.host_len.copy() if self.paged is not None
+                    else None)
+        state = generator.get_state() if generator is not None else None
+        try:
+            yield
+        except BaseException as e:
+            try:
+                cache["lengths"] = lengths
+                if host_len is not None:
+                    self.paged.host_len[:] = host_len
+                if state is not None:
+                    generator.set_state(state)
+            except Exception as lost:
+                raise CacheLost(
+                    f"a {type(e).__name__} left the cache unrestorable "
+                    f"({type(lost).__name__}: {lost})") from e
+            raise
+
+    def _sample_args(self, sample) -> tuple | None:
+        """A prefill caller's ``sample=(key, temperature, top_k, top_p)``,
+        checked against where this engine samples."""
+        if not self.sample_on_device:
+            if sample is not None:
+                raise ValueError(
+                    "this engine samples host-side (inference."
+                    "sample_on_device: false); drop the sample argument "
+                    "or build the engine with sample_on_device=True")
+            return None
+        if sample is None:
+            raise ValueError(
+                "this engine runs the on-device sampling epilogue "
+                "(inference.sample_on_device: true); pass sample=(key, "
+                "temperature, top_k, top_p) so the dispatch can draw the "
+                "next token without shipping logits to the host")
+        return sample
+
+    def _epilogue(self, logits: torch.Tensor, sample) -> torch.Tensor:
+        """Sampling in the dispatch: one row's token [1] int32 from its
+        logits [1, V], with ``sample``'s key (a ``torch.Generator`` on the
+        round schedule, a folded threefry key [2] on the slot schedule),
+        as the batcher draws it from returned logits."""
+        key, temperature, top_k, top_p = sample
+        dev = logits.device
+        t = torch.tensor([temperature], dtype=torch.float32, device=dev)
+        k = torch.tensor([top_k], dtype=torch.int32, device=dev)
+        p = torch.tensor([top_p], dtype=torch.float32, device=dev)
+        if isinstance(key, torch.Generator):
+            return sampling.sample(logits, key, t, k, p)
+        return sampling.sample_rowkeys(logits, prng.as_key(key, dev)[None],
+                                       t, k, p)
 
     # ---- paged-layout host plumbing ---------------------------------------
 
@@ -355,13 +495,18 @@ class InferenceEngine:
         return out
 
     @torch.no_grad()
-    def prefill(self, params, prompt_ids, adapter_id=None) -> tuple:
+    def prefill(self, params, prompt_ids, adapter_id=None,
+                sample=None) -> tuple:
         """One prompt through the full-sequence model, under adapter slot
         ``adapter_id`` on an engine with a pack. Returns (kv blocks in
         cache storage form, ``{"k", "v"[, "k_scale", "v_scale"]}: [L, 1,
         S_bucket, Hkv(, D)]``, last-token logits [1, V] fp32); a
-        ``return_hidden`` engine appends the last token's hidden state
-        before the final norm [1, H]."""
+        ``sample_on_device`` engine takes ``sample=(key, temperature,
+        top_k, top_p)`` and returns the sampled token [1] int32 in the
+        logits' place. A ``return_hidden`` engine appends the last token's
+        hidden state before the final norm [1, H]."""
+        sample = self._sample_args(sample)
+        self._hook("prefill")
         params = self._bind_one(params, adapter_id)
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
@@ -383,6 +528,8 @@ class InferenceEngine:
         # row before the LM-head matmul
         h_last = h[:, ids.size - 1: ids.size]
         last = llama.head_logits(params, h_last, cfg)[:, 0].float()
+        if sample is not None:
+            last = self._epilogue(last, sample)
         out = (self._pack_kv(torch.stack(ks), torch.stack(vs)), last)
         return out + (h_last[:, 0],) if self.return_hidden else out
 
@@ -434,11 +581,15 @@ class InferenceEngine:
 
     @torch.no_grad()
     def prefill_chunked(self, params, cache, prompt_ids, slot: int,
-                        start: int = 0, adapter_id=None) -> tuple:
+                        start: int = 0, adapter_id=None,
+                        sample=None) -> tuple:
         """Prefill one prompt as fixed-width chunks written straight into
         ``slot`` (in place), under adapter slot ``adapter_id``. Returns
-        (cache, last-token logits [1, V]); a ``return_hidden`` engine
-        appends the last chunk's last-token hidden state [1, H]."""
+        (cache, last-token logits [1, V]), or on a ``sample_on_device``
+        engine (cache, the token drawn from them with ``sample`` [1]); a
+        ``return_hidden`` engine appends the last chunk's last-token
+        hidden state [1, H]."""
+        sample = self._sample_args(sample)
         params = self._bind_one(params, adapter_id)
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         if ids.size == 0:
@@ -473,16 +624,20 @@ class InferenceEngine:
             chunk = ids[w0:end]
             padded = np.zeros((1, C), np.int32)
             padded[0, : chunk.size] = chunk
+            self._hook("prefill_chunk")
             logits, hidden = self._prefill_chunk(
                 params, cache, self._tokens(padded), slot, w0, chunk.size)
             if self.paged is not None:
                 self.paged.set_len(slot, end)
+        if sample is not None:  # only the last chunk's draw is consumed
+            logits = self._epilogue(logits, sample)
         return (cache, logits, hidden) if self.return_hidden \
             else (cache, logits)
 
     @torch.no_grad()
     def prefill_paged(self, params, cache, prompt_ids, slot: int,
-                      adapter_id=None, cache_salt: str = "") -> tuple:
+                      adapter_id=None, cache_salt: str = "",
+                      sample=None) -> tuple:
         """Paged admission of one prompt into ``slot`` (in place): share the
         longest radix-cached prefix (references only, no prefill for those
         tokens) and prefill the rest as chunks that attend over the shared
@@ -492,10 +647,13 @@ class InferenceEngine:
         cache is searched and filled in ``cache_salt``'s domain (the
         tenant: an adapter changes every row a page holds), and the
         prefill runs under ``adapter_id``. Returns (cache, last-token
-        logits [1, V], dispatches, cached tokens); a ``return_hidden``
-        engine appends the prompt's last hidden state [1, H]."""
+        logits [1, V], dispatches, cached tokens), the sampled token [1]
+        in the logits' place on a ``sample_on_device`` engine (which takes
+        ``sample``); a ``return_hidden`` engine appends the prompt's last
+        hidden state [1, H]."""
         if self.paged is None:
             raise ValueError("prefill_paged needs kv_layout='paged'")
+        self._sample_args(sample)
         ids = [int(t) for t in np.asarray(prompt_ids, np.int32).reshape(-1)]
         if not ids:
             raise ValueError("empty prompt")
@@ -504,16 +662,18 @@ class InferenceEngine:
             cache = paged_kv.set_length(self._sync_tables(cache), slot,
                                         cached)
             out = self.prefill_chunked(params, cache, ids, slot,
-                                       start=cached, adapter_id=adapter_id)
+                                       start=cached, adapter_id=adapter_id,
+                                       sample=sample)
             cache = out[0]
             n = -(-(len(ids) - cached) // self.prefill_chunk)
         elif len(ids) <= self.prefill_chunk:
-            out = self.prefill(params, ids, adapter_id=adapter_id)
+            out = self.prefill(params, ids, adapter_id=adapter_id,
+                               sample=sample)
             cache = self.insert(cache, out[0], slot, len(ids))
             n = 1
         else:
             out = self.prefill_chunked(params, cache, ids, slot,
-                                       adapter_id=adapter_id)
+                                       adapter_id=adapter_id, sample=sample)
             cache = out[0]
             n = -(-len(ids) // self.prefill_chunk)
         self.paged.register_prompt(slot, ids, salt=cache_salt)
@@ -544,67 +704,150 @@ class InferenceEngine:
         logits, h = self._model_block(params, cache, tokens[:, None])
         return logits[:, 0], h[:, 0]
 
+    def _sampling_args(self, temperature, top_k, top_p) -> tuple:
+        """The per-slot sampling parameters on the device, and whether any
+        row samples (read from the host arrays: no device sync)."""
+        dev = self.device
+        stochastic = bool((np.asarray(temperature) > 0).any())
+        temp = torch.as_tensor(np.asarray(temperature, np.float32)).to(dev)
+        return (stochastic, temp, self._tokens(top_k),
+                torch.as_tensor(np.asarray(top_p, np.float32)).to(dev))
+
+    def _keys(self, keys, kind: str):
+        """A dispatch's key operand: the round schedule's
+        ``torch.Generator``, or the slot schedule's per-slot base keys
+        [slots, 2] on the device."""
+        if self.key_schedule == "slot":
+            base = prng.as_key(keys, self.device)
+            if tuple(base.shape) != (self.slots, 2):
+                raise ValueError(
+                    f"key_schedule='slot' takes per-slot base keys "
+                    f"[slots, 2] = [{self.slots}, 2]; got "
+                    f"{tuple(base.shape)}")
+            return base
+        if not isinstance(keys, torch.Generator):
+            raise ValueError(
+                f"a key_schedule='round' engine's {kind} draws from a "
+                f"torch.Generator; got {type(keys).__name__}")
+        return keys
+
     @torch.no_grad()
-    def decode_block(self, params, cache, tokens, generator, eos_id, budget,
+    def decode_step(self, params, cache, tokens, generator, temperature,
+                    top_k, top_p, adapter_ids=None) -> tuple:
+        """One token for every slot, round-keyed. ``tokens`` and the
+        sampling parameters are [slots] host arrays; ``generator`` draws
+        the sampled rows. Every parked slot (length > 0) advances one row;
+        free slots stay at length 0. Returns (cache, next_tokens [slots]
+        int32, logits [slots, V] fp32) as device tensors; on a
+        ``sample_on_device`` engine the logits' place holds None (only the
+        token ids are the caller's to read). A ``return_hidden`` engine
+        appends hidden [slots, H]."""
+        if self.key_schedule == "slot":
+            raise ValueError(
+                "decode_step is round-keyed (one shared key per step) and "
+                "a key_schedule='slot' engine samples with per-slot "
+                "position-folded keys — use decode_block, whose slot "
+                "variant owns the schedule")
+        self._hook("decode")
+        if self.adapters is not None or adapter_ids is not None:
+            params = self.bind_adapter_ids(params, adapter_ids, self.slots)
+        if self.paged is not None:
+            cache = self._pre_write(cache, 1)
+        tok = self._tokens(tokens)
+        stochastic, temp, tk, tp = self._sampling_args(temperature, top_k,
+                                                       top_p)
+        with self._restoring(cache, generator):
+            pos = cache["lengths"]
+            logits, h = self._decode_core(params, cache, tok)
+            if stochastic:
+                nxt = sampling.sample(logits, generator, temp, tk, tp)
+            else:
+                nxt = sampling.greedy(sampling.sanitize_logits(logits))
+            cache["lengths"] = torch.where(pos > 0, pos + 1, pos)
+            if self.paged is not None:
+                self.paged.advance((self.paged.host_len > 0).astype(np.int64))
+        out = (cache, nxt, None if self.sample_on_device else logits)
+        return out + (h,) if self.return_hidden else out
+
+    @torch.no_grad()
+    def decode_block(self, params, cache, tokens, keys, eos_id, budget,
                      temperature, top_k, top_p, adapter_ids=None) -> tuple:
         """``decode_block_len`` tokens for every slot. ``tokens`` [slots]
         (each slot's current last token), ``eos_id`` [slots] (-1 = none),
         ``budget`` [slots] remaining tokens (0 for free slots) and the
-        sampling parameters are host arrays; ``generator`` draws the
-        sampled rows. A slot is active while it has a parked sequence and
-        budget; hitting EOS zeroes its budget. Inactive slots emit 0 and
-        stop advancing (their recomputed row writes land past the length
-        mask). Returns (cache, tokens [slots, block], produced counts
-        [slots]) as device tensors: ``counts[b]`` leading entries of row b
-        are what slot b produced. Paged: every page the block can write is
-        made the writer's own first, and the host lengths follow the
-        counts after. ``adapter_ids`` [slots] are the slots' adapter slots
-        on an engine with a pack (None: all null). A ``return_hidden``
-        engine appends hidden [slots, H]: each slot's state before the
-        final norm at its last active step (zeros for a slot that made no
-        step), what produced its last emitted token."""
+        sampling parameters are host arrays. ``keys`` draws the sampled
+        rows: the round schedule's ``torch.Generator``, or on a
+        ``key_schedule='slot'`` engine the per-slot base keys [slots, 2],
+        the row after position ``p`` of slot ``b`` drawn with
+        ``fold_in(keys[b], p)``. A slot is active while it has a parked
+        sequence and budget; hitting EOS zeroes its budget. Inactive slots
+        emit 0 and stop advancing (their recomputed row writes land past
+        the length mask). Returns (cache, tokens [slots, block], produced
+        counts [slots]) as device tensors: ``counts[b]`` leading entries of
+        row b are what slot b produced; a slot-keyed engine appends
+        next_tok [slots] (each slot's last token after the block, its
+        input token where it made no step). Paged: every page the block
+        can write is made the writer's own first, and the host lengths
+        follow the counts after. ``adapter_ids`` [slots] are the slots'
+        adapter slots on an engine with a pack (None: all null). A
+        ``return_hidden`` engine appends hidden [slots, H]: each slot's
+        state before the final norm at its last active step (zeros for a
+        slot that made no step), what produced its last emitted token."""
+        keys = self._keys(keys, "decode_block")
+        slot_keys = self.key_schedule == "slot"
+        self._hook("decode", budget)
         dev = self.device
         if self.adapters is not None or adapter_ids is not None:
             params = self.bind_adapter_ids(params, adapter_ids, self.slots)
+        poison = self._poison("decode")
         if self.paged is not None:
             cache = self._pre_write(cache, self.decode_block_len,
                                     budget=budget)
         tok = self._tokens(tokens)
         eos = self._tokens(eos_id)
         budget = self._tokens(budget)
-        stochastic = bool((np.asarray(temperature) > 0).any())
-        temp = torch.as_tensor(np.asarray(temperature, np.float32)).to(dev)
-        tk = self._tokens(top_k)
-        tp = torch.as_tensor(np.asarray(top_p, np.float32)).to(dev)
+        stochastic, temp, tk, tp = self._sampling_args(temperature, top_k,
+                                                       top_p)
         emitted, actives = [], []
         hid = (torch.zeros((self.slots, self.cfg.model.hidden_size),
                            dtype=self._dt, device=dev)
                if self.return_hidden else None)
-        for _ in range(self.decode_block_len):
-            pos = cache["lengths"]
-            active = (pos > 0) & (budget > 0)
-            logits, h = self._decode_core(params, cache, tok)
-            if hid is not None:
-                hid = torch.where(active[:, None], h, hid)
-            if stochastic:
-                sampled = sampling.sample(logits, generator, temp, tk, tp)
-            else:  # every row greedy: the same tokens without the sort
-                sampled = sampling.greedy(sampling.sanitize_logits(logits))
-            emitted.append(torch.where(active, sampled, 0))
-            actives.append(active)
-            budget = torch.where(active, budget - 1, budget)
-            hit_eos = active & (eos >= 0) & (sampled == eos)
-            budget = torch.where(hit_eos, 0, budget)
-            cache["lengths"] = torch.where(active, pos + 1, pos)
-            tok = torch.where(active, sampled, tok)
-        counts = torch.stack(actives, dim=1).sum(dim=1, dtype=torch.int32)
-        if self.paged is not None:
-            self.paged.advance(counts.cpu().numpy())
+        with self._restoring(cache, None if slot_keys else keys):
+            for _ in range(self.decode_block_len):
+                pos = cache["lengths"]
+                active = (pos > 0) & (budget > 0)
+                logits, h = self._decode_core(params, cache, tok)
+                if poison:
+                    logits = torch.full_like(logits, float("nan"))
+                if hid is not None:
+                    hid = torch.where(active[:, None], h, hid)
+                if not stochastic:  # every row greedy: no sort, no draw
+                    sampled = sampling.greedy(
+                        sampling.sanitize_logits(logits))
+                elif slot_keys:
+                    sampled = sampling.sample_rowkeys(
+                        logits, prng.fold_in(keys, pos), temp, tk, tp,
+                        greedy_only=False)
+                else:
+                    sampled = sampling.sample(logits, keys, temp, tk, tp)
+                emitted.append(torch.where(active, sampled, 0))
+                actives.append(active)
+                budget = torch.where(active, budget - 1, budget)
+                hit_eos = active & (eos >= 0) & (sampled == eos)
+                budget = torch.where(hit_eos, 0, budget)
+                cache["lengths"] = torch.where(active, pos + 1, pos)
+                tok = torch.where(active, sampled, tok)
+            counts = torch.stack(actives, dim=1).sum(dim=1,
+                                                     dtype=torch.int32)
+            if self.paged is not None:
+                self.paged.advance(counts.cpu().numpy())
         out = (cache, torch.stack(emitted, dim=1), counts)
+        if slot_keys:
+            out += (tok,)
         return out + (hid,) if hid is not None else out
 
     @torch.no_grad()
-    def verify(self, params, cache, tokens, generator, eos_id, budget,
+    def verify(self, params, cache, tokens, keys, eos_id, budget,
                temperature, top_k, top_p, draft_len=None,
                adapter_ids=None) -> tuple:
         """One draft-verify dispatch for every slot (``spec_len > 0``
@@ -618,18 +861,23 @@ class InferenceEngine:
         One model pass runs the S = spec_len + 1 tokens at rows
         ``lengths + 0..S-1`` of each slot, writing their K/V (the real
         ones, inside the window) and attending causally over the cache
-        prefix and the block; ``sampling.speculative_accept`` keeps the
-        accepted drafts and draws one fresh token; the budget and the
-        first emitted EOS cut the run. The lengths advance by the emitted
-        counts only: rejected rows sit past them, unreachable, and the
-        next dispatch overwrites them. Free slots (length 0) and slots
-        without budget emit nothing. Paged: every parked slot's S rows
-        are made its own pages first, and the host lengths follow the
-        counts after.
+        prefix and the block. The round schedule's
+        ``sampling.speculative_accept`` keeps the accepted drafts and
+        draws one fresh token; the slot schedule's
+        ``sampling.speculative_match`` draws the chain's own token at
+        every row with that row's folded key and keeps the drafts that
+        match it. The budget and the first emitted EOS cut the run. The
+        lengths advance by the emitted counts only: rejected rows sit past
+        them, unreachable, and the next dispatch overwrites them. Free
+        slots (length 0) and slots without budget emit nothing. Paged:
+        every parked slot's S rows are made its own pages first, and the
+        host lengths follow the counts after.
 
         Returns (cache, emitted [slots, S], counts [slots], accepted
         [slots]) as device tensors: the leading ``counts[b]`` entries of
         row b are what slot b emitted, ``accepted[b]`` of them drafts. A
+        slot-keyed engine appends next_tok [slots] (the last emitted
+        token, the fed last token where a row emitted none); a
         ``return_hidden`` engine appends hidden [slots, H], each slot's
         state before the final norm at row ``counts - 1``."""
         if self.spec_len < 1:
@@ -656,8 +904,12 @@ class InferenceEngine:
                     f"draft_len entries must be in [0, spec_len = "
                     f"{self.spec_len}]; got {draft_len.tolist()}")
             valid = draft_len + 1
+        keys = self._keys(keys, "verify")
+        slot_keys = self.key_schedule == "slot"
+        self._hook("verify", budget)
         if self.adapters is not None or adapter_ids is not None:
             params = self.bind_adapter_ids(params, adapter_ids, self.slots)
+        poison = self._poison("verify")
         if self.paged is not None:
             cache = self._pre_write(cache, S)
         dev = self.device
@@ -665,36 +917,47 @@ class InferenceEngine:
         valid_t = self._tokens(valid)
         eos = self._tokens(eos_id)
         budget = self._tokens(budget)
-        greedy_only = not bool((np.asarray(temperature) > 0).any())
-        temp = torch.as_tensor(np.asarray(temperature, np.float32)).to(dev)
-        tk = self._tokens(top_k)
-        tp = torch.as_tensor(np.asarray(top_p, np.float32)).to(dev)
-        pos0 = cache["lengths"]
-        logits, h = self._model_block(params, cache, tok,
-                                      draft_valid=valid_t)
-        emitted, counts = sampling.speculative_accept(
-            logits, tok[:, 1:], generator, temp, tk, tp,
-            draft_len=valid_t - 1, greedy_only=greedy_only)
-        raw = counts  # accepted drafts + 1 fresh token, before any cut
-        active = (pos0 > 0) & (budget > 0)
-        counts = torch.where(active, torch.minimum(counts, budget), 0)
-        cols = torch.arange(S, device=dev)[None, :]
-        is_eos = ((eos >= 0)[:, None] & (emitted == eos[:, None])
-                  & (cols < counts[:, None]))
-        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1) + 1
-        counts = torch.where(is_eos.any(dim=1), first_eos.to(torch.int32),
-                             counts)
-        emitted = torch.where(cols < counts[:, None], emitted, 0)
-        # all but (possibly) the last emitted token are drafts: with no cut,
-        # raw - 1 drafts and the fresh token; cut below that, all drafts
-        accepted = torch.minimum(raw - 1, counts)
-        cache["lengths"] = torch.where(active, pos0 + counts, pos0)
-        if self.paged is not None:
-            self.paged.advance(counts.cpu().numpy())
+        stochastic, temp, tk, tp = self._sampling_args(temperature, top_k,
+                                                       top_p)
+        with self._restoring(cache, None if slot_keys else keys):
+            pos0 = cache["lengths"]
+            logits, h = self._model_block(params, cache, tok,
+                                          draft_valid=valid_t)
+            if poison:
+                logits = torch.full_like(logits, float("nan"))
+            if slot_keys:
+                rows = pos0[:, None] + torch.arange(S, device=dev)[None, :]
+                emitted, counts = sampling.speculative_match(
+                    logits, tok[:, 1:], keys, rows, temp, tk, tp,
+                    draft_len=valid_t - 1, greedy_only=not stochastic)
+            else:
+                emitted, counts = sampling.speculative_accept(
+                    logits, tok[:, 1:], keys, temp, tk, tp,
+                    draft_len=valid_t - 1, greedy_only=not stochastic)
+            raw = counts  # accepted drafts + 1 fresh token, before any cut
+            active = (pos0 > 0) & (budget > 0)
+            counts = torch.where(active, torch.minimum(counts, budget), 0)
+            cols = torch.arange(S, device=dev)[None, :]
+            is_eos = ((eos >= 0)[:, None] & (emitted == eos[:, None])
+                      & (cols < counts[:, None]))
+            first_eos = torch.argmax(is_eos.to(torch.int32), dim=1) + 1
+            counts = torch.where(is_eos.any(dim=1),
+                                 first_eos.to(torch.int32), counts)
+            emitted = torch.where(cols < counts[:, None], emitted, 0)
+            # all but (possibly) the last emitted token are drafts: with no
+            # cut, raw - 1 drafts and the fresh token; cut below that, all
+            # drafts
+            accepted = torch.minimum(raw - 1, counts)
+            cache["lengths"] = torch.where(active, pos0 + counts, pos0)
+            if self.paged is not None:
+                self.paged.advance(counts.cpu().numpy())
         out = (cache, emitted, counts, accepted)
+        idx = (counts.long() - 1).clamp(0, S - 1)
+        if slot_keys:
+            last = emitted.gather(1, idx[:, None])[:, 0]
+            out += (torch.where(counts > 0, last, tok[:, 0]),)
         if not self.return_hidden:
             return out
-        idx = (counts.long() - 1).clamp(0, S - 1)
         return out + (h[torch.arange(self.slots, device=dev), idx],)
 
     def make_draft_program(self, with_head: bool = False):

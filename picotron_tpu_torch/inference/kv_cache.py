@@ -241,3 +241,9 @@ def release(cache: dict, slot: int) -> dict:
     """Free a slot: zero its length so no stale key is visible again."""
     cache["lengths"][slot] = 0
     return cache
+
+
+def live_tokens(cache: dict) -> torch.Tensor:
+    """Tokens parked across all slots: the sum of the lengths (an
+    occupancy figure for the batcher and benchmarks)."""
+    return cache["lengths"].sum()

@@ -470,6 +470,18 @@ class RadixCache:
         self.evictions += 1
         return True
 
+    def clear(self) -> None:
+        """Drop every reference the cache holds, in every salt's domain
+        (the pool reset after a lost cache)."""
+        stack = [n for root in self._roots.values()
+                 for n in root.children.values()]
+        while stack:
+            n = stack.pop()
+            self.pool.unref(n.page_id)
+            stack.extend(n.children.values())
+        for root in self._roots.values():
+            root.children = {}
+
 
 class PagedKV:
     """Host-side page manager for one engine: per-slot block tables and

@@ -14,13 +14,17 @@ al. 2023; Chen et al. 2023) for a deterministic drafter: greedy rows keep
 the draft prefix that matches the argmax chain and emit the argmax after
 it, bit for bit the JAX rule's; sampled rows accept draft ``i`` with
 probability ``p_i(draft_i)`` and draw the fresh token from the residual,
-which keeps the sampler's distribution.
+which keeps the sampler's distribution. ``speculative_match`` is the
+per-slot schedule's rule: every fed position draws the target chain's own
+token with the key that position owns, and the draft prefix that matches
+it is accepted, so the emitted stream never depends on the drafts.
 """
 
 from __future__ import annotations
 
 import torch
 
+from picotron_tpu_torch.inference import prng
 from picotron_tpu_torch.ops.attention import NEG_INF
 
 
@@ -100,6 +104,31 @@ def sample(logits: torch.Tensor, generator: torch.Generator,
     drawn = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return torch.where((temperature <= 0) | bad, greedy_tok,
                        drawn.to(torch.int32))
+
+
+def sample_rowkeys(logits: torch.Tensor, keys: torch.Tensor,
+                   temperature: torch.Tensor, top_k: torch.Tensor,
+                   top_p: torch.Tensor,
+                   greedy_only: bool | None = None) -> torch.Tensor:
+    """``sample`` with a key per row (the per-slot key schedule): row ``b``
+    draws ``prng.categorical`` with ``keys[b]`` ([B, 2] threefry keys) over
+    the same filtered logits, so a row's token depends only on its key and
+    its logits, and a row drawn here equals that row drawn alone. Greedy
+    rows and rows with non-finite logits take the sanitized argmax, as in
+    ``sample``. ``greedy_only`` (the caller knows every row is greedy, or
+    knows one is not) skips reading the temperatures on the device; an
+    all-greedy batch runs no filter and no draw."""
+    bad = nonfinite_rows(logits)
+    logits = sanitize_logits(logits)
+    greedy_tok = greedy(logits)
+    if greedy_only is None:
+        greedy_only = bool((temperature <= 0).all())
+    if greedy_only:
+        return greedy_tok
+    t = temperature.float().clamp(min=1e-6)[:, None]
+    filtered = filter_top_k_top_p(logits.float() / t, top_k, top_p)
+    drawn = prng.categorical(keys, filtered).to(torch.int32)
+    return torch.where((temperature <= 0) | bad, greedy_tok, drawn)
 
 
 def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
@@ -194,4 +223,47 @@ def speculative_accept(logits: torch.Tensor, draft: torch.Tensor,
                        dim=1)
     emitted = torch.where(cols < acc[:, None], padded, 0)
     emitted = torch.where(cols == acc[:, None], last[:, None], emitted)
+    return emitted.to(torch.int32), (acc + 1).to(torch.int32)
+
+
+def speculative_match(logits: torch.Tensor, draft: torch.Tensor,
+                      base_keys: torch.Tensor, positions: torch.Tensor,
+                      temperature: torch.Tensor, top_k: torch.Tensor,
+                      top_p: torch.Tensor,
+                      draft_len: torch.Tensor | None = None,
+                      greedy_only: bool | None = None) -> tuple:
+    """Draft acceptance under the per-slot key schedule: sample and match.
+
+    Every fed position ``i`` of row ``b`` draws the target chain's own token
+    ``s[b, i] = sample_rowkeys(logits[b, i], fold_in(base_keys[b],
+    positions[b, i]))``; the draft prefix equal to ``s`` is accepted, and
+    ``s`` at the first mismatch (or the bonus position) is the fresh
+    token. So the emitted stream is a function of the base keys, the
+    positions and the logits, never of the drafts: speculative output
+    equals token-by-token decoding under the same schedule. For a
+    deterministic drafter this is rejection sampling (a draft is accepted
+    iff the chain's own draw equals it).
+
+    ``base_keys`` [B, 2] per-slot keys; ``positions`` [B, S] the KV row
+    each fed token was written at (the fold-in data of the draw that
+    follows it). The other arguments and the return value ``(emitted [B,
+    S] int32, counts [B] int32)`` are ``speculative_accept``'s."""
+    B, S, V = logits.shape
+    G = S - 1
+    if greedy_only is None:
+        greedy_only = bool((temperature <= 0).all())
+    keys = None if greedy_only else prng.fold_in(
+        prng.as_key(base_keys, logits.device)[:, None, :],
+        positions).reshape(B * S, 2)
+    s = sample_rowkeys(
+        logits.reshape(B * S, V), keys,
+        temperature.repeat_interleave(S), top_k.repeat_interleave(S),
+        top_p.repeat_interleave(S), greedy_only=greedy_only).reshape(B, S)
+    ok = draft == s[:, :G]
+    if draft_len is not None:
+        ok &= (torch.arange(G, device=logits.device)[None, :]
+               < draft_len[:, None])
+    acc = _leading_true(ok)
+    cols = torch.arange(S, device=logits.device)[None, :]
+    emitted = torch.where(cols <= acc[:, None], s, 0)
     return emitted.to(torch.int32), (acc + 1).to(torch.int32)

@@ -1,8 +1,10 @@
-"""Bounded retry with exponential backoff and jitter for flaky I/O.
+"""Bounded retry with exponential backoff and jitter for flaky I/O and
+serving dispatches.
 
 Port of ``picotron_tpu/resilience/retry.py``: checkpoint saves and
 restores and safetensors opens cross network mounts where transient
-errors are routine. Attempts are bounded (a deterministic failure surfaces
+errors are routine, and the batcher retries a failed dispatch before it
+isolates the failure. Attempts are bounded (a deterministic failure surfaces
 quickly, with the original exception), delays grow exponentially, and
 jitter decorrelates processes that hit the same flake at once.
 """
@@ -24,14 +26,17 @@ def retry(
     desc: str = "",
     sleep: Callable[[float], None] = time.sleep,
     rng: Callable[[], float] = random.random,
+    fatal: Callable[[Exception], bool] | None = None,
 ):
     """Call ``fn()`` up to ``attempts`` times; return its result.
 
     The delay before attempt k + 1 is ``backoff * 2**(k-1)`` scaled by a
     uniform jitter in [1, 1 + jitter]. The last failure re-raises the
     original exception unchanged. ``KeyboardInterrupt`` and ``SystemExit``
-    are never swallowed (they are not ``Exception``s). ``sleep`` and
-    ``rng`` are injectable so tests run at once and deterministically.
+    are never swallowed (they are not ``Exception``s), and an exception
+    for which ``fatal`` holds re-raises at once: another attempt could
+    not succeed. ``sleep`` and ``rng`` are injectable so tests run at once
+    and deterministically.
     """
     if attempts < 1:
         raise ValueError(f"retry needs attempts >= 1, got {attempts}")
@@ -39,7 +44,7 @@ def retry(
         try:
             return fn()
         except Exception as e:
-            if attempt == attempts:
+            if attempt == attempts or (fatal is not None and fatal(e)):
                 raise
             delay = backoff * (2 ** (attempt - 1)) * (1.0 + jitter * rng())
             log0(f"retry{f' [{desc}]' if desc else ''}: attempt "

@@ -35,6 +35,8 @@ reference's logit gap there.
 or ``inference.drafter`` of the config) proposes N tokens a slot and one
 verify pass emits 1 to N + 1; the summary line then reports ``spec=N
 accept=R``.
+``--sample-on-device`` draws each first token inside its prefill dispatch
+(``inference.sample_on_device``): the same tokens as without it.
 ``--adapter RANK[:SEED[:SCALE]]`` serves every request through one
 seed-derived LoRA adapter (slot 1 of a two-slot pack, through kernel H on
 the card); ``--check-adapter-parity`` runs the batch again on a pack-less
@@ -244,6 +246,10 @@ def main(argv=None, device=None) -> int:
                          "LoRA adapter (tenancy.AdapterPack, slot 1) "
                          "over the base weights: the multi-tenant "
                          "segmented dispatch with a single tenant")
+    ap.add_argument("--sample-on-device", action="store_true",
+                    help="sample inside the dispatch: the prefill family "
+                         "returns token ids, never [B, vocab] logits "
+                         "(the same tokens as without it)")
     ap.add_argument("--check-adapter-parity", action="store_true",
                     help="run the batch again on an adapter-less engine "
                          "fed the MERGED reference (W + A @ B; an int8 "
@@ -280,6 +286,8 @@ def main(argv=None, device=None) -> int:
         cfg.inference.kv_page_policy = args.kv_page_policy
     if args.weight_dtype is not None:
         cfg.inference.weight_dtype = args.weight_dtype
+    if args.sample_on_device:
+        cfg.inference.sample_on_device = True
     cfg.validate()
     if args.check_weight_parity and cfg.inference.weight_dtype != "int8":
         ap.error("--check-weight-parity compares int8 against the "

@@ -4,8 +4,8 @@ Every field of every section of ``picotron_tpu.config.Config`` must be
 declared by the port's ``Config``, refused at load when set to a value the
 port does not behave as (``REFUSED_AT_LOAD``), or listed as inert with its
 reason (``INERT_FIELDS``): a config never runs on the port without the
-behaviour it asks for. The refusals name their field (two serving fields
-are refused where serving starts, ``Config.check_servable``), and the
+behaviour it asks for. The refusals name their field (the dense fallback
+is refused where serving starts, ``Config.check_servable``), and the
 bundled configs (``configs/*/config.json``) all load.
 """
 
@@ -18,7 +18,10 @@ import torch
 from picotron_tpu.config import Config as JaxConfig
 from picotron_tpu_torch import config as port_config
 from picotron_tpu_torch.config import Config
+from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
 from picotron_tpu_torch.inference.engine import InferenceEngine
+from picotron_tpu_torch.models import llama
+from picotron_tpu_torch.resilience.chaos import ServingChaos
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.listdir(os.path.join(REPO, "configs")))
@@ -73,25 +76,48 @@ TINY_MODEL = {"num_hidden_layers": 1, "num_attention_heads": 2,
     ("resilience", "dispatch_attempts", 2, "serve"),
     ("inference", "attend_fallback", True, "serve"),
     ("inference", "key_schedule", "slot", "load"),
+    ("inference", "overlap", True, "load"),
 ])
 def test_unhonoured_values_are_refused(section, name, value, where):
-    """key_schedule "slot" is refused at load. The dispatch retries and the
-    dense fallback act only when the port serves, and the JAX package's
-    own to_dict writes them at its defaults (2 and true), so the load takes
-    them and the engine refuses them (``Config.check_servable``)."""
+    """A value the port does not behave as is refused: ``overlap`` at load,
+    and the dense fallback where serving starts (the JAX package's own
+    to_dict writes it at its default, true, so the load takes it and the
+    engine refuses it: ``Config.check_servable``). The dispatch retries and
+    the per-slot key schedule, once refused here, are served now: they
+    load, pass ``check_servable``, and the engine and batcher built from
+    them act on them."""
     refused = rf"{section}\.{name}=.* is not in the PyTorch port yet"
     raw = {"model": TINY_MODEL, section: {name: value}}
-    if where == "load":
+    if (section, name) in port_config.REFUSED_AT_LOAD:
         with pytest.raises(ValueError, match=refused):
             Config.from_dict(raw)
         only = port_config.REFUSED_AT_LOAD[(section, name)]
-    else:
+    elif name == "attend_fallback":
         cfg = Config.from_dict(raw)
         with pytest.raises(ValueError, match=refused):
             cfg.check_servable()
         with pytest.raises(ValueError, match=refused):
             InferenceEngine(cfg, "cpu", slots=1)
         only = (getattr(getattr(Config(), section), name),)
+    else:
+        cfg = Config.from_dict(raw)
+        cfg.check_servable()
+        engine = InferenceEngine(cfg, "cpu", slots=1)
+        if name == "key_schedule":
+            assert engine.key_schedule == "slot"
+        else:
+            # one injected fault at the first decode round: the second of
+            # the two attempts lands it
+            engine.hooks = ServingChaos(Config.from_dict({"resilience": {
+                "chaos_dispatch_raise_round": 1}}).resilience)
+            params = llama.init_params(engine.cfg.model, seed=0,
+                                       device=engine.device)
+            b = ContinuousBatcher(engine, params, sleep=lambda s: None)
+            res = b.run([Request("a", [1, 2, 3], max_new_tokens=2)])
+            assert res["a"].finish_reason == "length"
+            assert len(res["a"].tokens) == 2
+            assert engine.hooks.round == 2 and b.decode_dispatches == 1
+        only = ()
     # the values the port does behave as load and serve
     for ok in only:
         cfg = Config.from_dict({"model": TINY_MODEL, section: {name: ok}})
@@ -100,9 +126,8 @@ def test_unhonoured_values_are_refused(section, name, value, where):
 
 
 def test_a_jax_dump_loads_for_training():
-    """A JAX config's to_dict, every field at the JAX default (dispatch
-    retries and the dense fallback on), loads and trains; only serving
-    refuses it."""
+    """A JAX config's to_dict, every field at the JAX default (the dense
+    fallback on), loads and trains; only serving refuses it."""
     raw = JaxConfig.from_dict({"model": TINY_MODEL,
                                "training": {"seq_length": 8}}).to_dict()
     cfg = Config.from_dict(raw)

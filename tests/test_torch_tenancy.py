@@ -888,14 +888,25 @@ def test_admission_seats_higher_classes_first(tiny):
     ("chaos_dispatch_raise_round", 3), ("chaos_dispatch_fail_slot", 0),
     ("chaos_latency_round", 2), ("chaos_poison_logits_round", 1)])
 def test_serving_chaos_options_are_refused(name, value):
+    """The serving chaos options, once refused at load, load now: the JAX
+    value builds a ``ServingChaos`` that is active, with the JAX hook's
+    attribute; the option's "off" value builds an inactive one."""
+    from picotron_tpu.resilience.chaos import ServingChaos as JaxChaos
+    from picotron_tpu_torch.resilience.chaos import ServingChaos
+
+    attr = {"chaos_dispatch_raise_round": "dispatch_raise_round",
+            "chaos_dispatch_fail_slot": "fail_slot",
+            "chaos_latency_round": "latency_round",
+            "chaos_poison_logits_round": "poison_round"}[name]
     raw = {"resilience": {name: value}}
-    assert getattr(JaxConfig.from_dict(raw).resilience, name) == value
-    with pytest.raises(ValueError, match=rf"resilience\.{name}={value} is "
-                                         r"not in the PyTorch port yet"):
-        Config.from_dict(raw)
-    # the options' "off" values load
+    theirs = JaxChaos(JaxConfig.from_dict(raw).resilience)
+    ours = ServingChaos(Config.from_dict(raw).resilience)
+    assert ours.active and theirs.active
+    assert getattr(ours, attr) == getattr(theirs, attr) == value
     off = {"chaos_dispatch_fail_slot": -1}.get(name, 0)
-    Config.from_dict({"resilience": {name: off, "chaos_latency_s": 0.5}})
+    r = Config.from_dict({"resilience": {name: off,
+                                         "chaos_latency_s": 0.5}}).resilience
+    assert not ServingChaos(r).active and r.chaos_latency_s == 0.5
 
 
 def _tiny_config_file(tmp_path, **inference) -> str:
