@@ -175,13 +175,29 @@ Run from the root of a checkout. Phases, each of which must pass:
    request "error", the late one "timeout", every other one its full
    budget and the fault-free run's bits; then NaN logits in a round: every
    request accounted for). Each run launches A, B and C and no other;
-12. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+12. the overlap pipeline and the mixed prefill lane on phase 3's model (8
+   slots, decode blocks of 4, chunks of 512, the slot schedule):
+   ``serve_overlap`` (phase 3's prompts and budgets, contiguous, with
+   overlap at temperature 0.8, in turns with the serial scheduler, and
+   greedy: the serial runs' bits; decode tokens/s, the issue-to-issue gap
+   and the device's busy share of each mode), ``serve_lane_paged`` (paged
+   bf16 with the prefix cache: phase 5's traffic, then two 1,400-token
+   prompts once four slots decode; serial, the lane, the lane with
+   overlap: the serial bits and prefill dispatches, phase 5's prefix hits
+   and cached tokens; each mode's decode stall, the decoders' TPOT and the
+   long prompts' TTFT) and ``serve_lane_spec`` (``spec_len`` 4, n-gram,
+   the lane with overlap: the serial spec run's bits, full budgets, phase
+   3's greedy gate). Every run with overlap issues its rounds under
+   ``torch.cuda.set_sync_debug_mode("error")``, and each run launches its
+   path's kernels (A, B and C, or C's paged variant) and no other;
+13. a ``{"kernels": [...]}`` line with each kernel's launches on its own
    path (and on each path: ``serve``, ``serve_paged``,
-   ``serve_paged_int8``, ``serve_mixed``, ``serve_tenants``,
-   ``serve_int8``, ``train``, ``checkpoint``, ``serve_spec``,
-   ``serve_spec_learned``, ``serve_spec_paged``, ``serve_spec_oracle``,
-   ``serve_spec_offscript``, ``serve_slot``, ``serve_slot_spec``,
-   ``sample_on_device``, ``serve_chaos``),
+   ``serve_paged_int8``, ``serve_mixed`` (the ``hot_bf16`` page policy),
+   ``serve_tenants``, ``serve_int8``, ``train``, ``checkpoint``,
+   ``serve_spec``, ``serve_spec_learned``, ``serve_spec_paged``,
+   ``serve_spec_oracle``, ``serve_spec_offscript``, ``serve_slot``,
+   ``serve_slot_spec``, ``sample_on_device``, ``serve_chaos``,
+   ``serve_overlap``, ``serve_lane_paged``, ``serve_lane_spec``),
    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
@@ -1572,13 +1588,14 @@ def _greedy_agrees(torch, llama, params, cfg, res) -> float:
     return gap
 
 
-def _profile(torch, run, path: str) -> dict:
+def _profile(torch, run, path: str, with_wall: bool = False):
     """Phases 4 to 7: ``run`` (a main path's work once more) under
     torch.profiler. Prints one ``{"profile": ...}`` line: the wall time,
     the summed device time of every kernel (one stream, so kernels do not
     overlap and the sum over the wall is the device's busy share), the
     kernels that took the most device time, and C's, A's and D's kernels.
-    Returns every kernel's device milliseconds by name."""
+    Returns every kernel's device milliseconds by name (and, with
+    ``with_wall``, the wall milliseconds beside them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1615,7 +1632,7 @@ def _profile(torch, run, path: str) -> dict:
     merge = [name for name in dev_ms if "flash_decode_merge" in name]
     if merge:
         raise AssertionError(f"{path}: a separate merge kernel ran: {merge}")
-    return dev_ms
+    return (dev_ms, wall * 1e3) if with_wall else dev_ms
 
 
 # device kernels of a library (cuBLAS GEMMs, PyTorch's attention) that the
@@ -2549,6 +2566,330 @@ def _keys_and_faults_phase(torch, np, card, paths, all_kernels,
     return by_path
 
 
+# phase 12: the two 1,400-token prompts of serve_lane_paged, submitted once
+# LANE_DECODERS slots decode phase 5's traffic
+LANE_LONG_LEN = 1400
+LANE_LONGS = 2
+LANE_DECODERS = 4
+
+
+def _sync_gated(torch, batcher, path: str) -> dict:
+    """Put ``batcher``'s issue stage under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call in
+    ``_issue_round`` that waits for the card raises there, the issue falls
+    back to the serial recovery, and the fallback is made to fail the
+    phase. Returns the tally of gated issues."""
+    issue = batcher._issue_round
+    tally = {"issues": 0}
+
+    def gated(budget):
+        tally["issues"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return issue(budget)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def fallback(*args, **kwargs):
+        raise AssertionError(
+            f"{path}: an issue fell back to the serial round (a sync under "
+            f"set_sync_debug_mode('error')? the log line above names it)")
+
+    batcher._issue_round = gated
+    batcher._round_fallback = fallback
+    return tally
+
+
+def _pipeline_phase(torch, np, card, paths, all_kernels) -> dict:
+    """Phase 12: the overlap pipeline and the mixed prefill lane on phase
+    3's model (SmolLM-1.7B at full width and depth, 8 slots, decode blocks
+    of ``KEYS_BLOCK``, chunks of 512, the slot schedule). Every kernel's
+    count is set to 0 just before each run and read just after, and each
+    run must launch its path's kernels and no other; every run with overlap
+    runs its issue stage under ``set_sync_debug_mode("error")``
+    (``_sync_gated``). Returns each path's counts.
+
+    - ``serve_overlap``: phase 3's prompts and budgets, contiguous, with
+      overlap, at temperature 0.8 (in turns: serial, overlap, overlap,
+      serial) and greedy: the serial slot-schedule runs' bits; decode
+      tokens/s, the issue-to-issue gap p50 and (one profiled run each) the
+      device's busy share of each mode.
+    - ``serve_lane_paged``: paged bf16 with the prefix cache, phase 5's
+      traffic, then ``LANE_LONGS`` prompts of ``LANE_LONG_LEN`` tokens
+      submitted once ``LANE_DECODERS`` slots decode; serial, the lane, the
+      lane with overlap: the serial bits, the serial run's prefill
+      dispatches (a lane chunk counts as a serial chunk) and phase 5's
+      prefix hits and cached tokens; each mode's decode stall, the
+      decoders' TPOT p50/p95 and the long prompts' TTFT.
+    - ``serve_lane_spec``: ``spec_len`` 4 with the n-gram drafter,
+      contiguous, the lane with overlap, on phase 3's traffic: the serial
+      slot-schedule spec run's bits, full budgets and phase 3's greedy
+      gate."""
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+
+    m = Config.from_json(CONFIG).model
+    V = m.vocab_size
+    params = llama.init_params(m, seed=SEED, device=torch.device(DEVICE))
+    by_path = {}
+
+    def engine_for(paged=False, **inf):
+        cfg = Config.from_json(CONFIG)
+        cfg.inference.key_schedule = "slot"
+        cfg.inference.decode_block_len = KEYS_BLOCK
+        if paged:
+            cfg.inference.kv_layout = "paged"
+            cfg.inference.kv_page_len = PAGE_LEN
+            cfg.inference.kv_num_pages = 0
+            cfg.inference.prefix_cache = True
+        for k, v in inf.items():
+            setattr(cfg.inference, k, v)
+        cfg.validate()
+        engine = InferenceEngine(cfg, DEVICE, slots=8, attend_impl="flash")
+        # warm-up outside the counted runs: a sampled short request and a
+        # long one, so the lane's chunk and the draw have run once
+        ContinuousBatcher(engine, params, seed=SEED).run(
+            [Request("warm", list(range(1, 25)), max_new_tokens=6,
+                     temperature=0.8),
+             Request("warm_long", list(range(1, 601)), max_new_tokens=2)])
+        return engine
+
+    def counted(path, engine, drive):
+        """One counted run: ``drive(batcher)`` serves it; returns
+        (results, batcher, counts, wall, issues gated)."""
+        batcher = ContinuousBatcher(engine, params, seed=SEED)
+        tally = (_sync_gated(torch, batcher, path) if engine.overlap
+                 else {"issues": None})
+        torch.cuda.synchronize()
+        for kern in all_kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        results = drive(batcher)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in all_kernels}
+        launches = {kern.name: counts[kern.name] for kern in paths[path]}
+        idle = [name for name, n in launches.items() if n == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on {path}: {idle}")
+        stray = {k: n for k, n in counts.items() if n and k not in launches}
+        if stray:
+            raise AssertionError(f"kernels of another path launched on "
+                                 f"{path}: {stray}")
+        if engine.overlap and not tally["issues"]:
+            raise AssertionError(f"{path}: no issue ran under the gate")
+        for uid, res in results.items():
+            if not all(0 <= t < V for t in res.tokens):
+                raise AssertionError(f"{path} {uid}: a token outside the "
+                                     f"vocabulary")
+        return results, batcher, counts, wall, tally["issues"]
+
+    def run_all(requests):
+        return lambda b: b.run(requests)
+
+    def streams(results):
+        return {u: r.tokens for u, r in results.items()}
+
+    def same_bits(path, got, want):
+        bad = {u: next((i for i, (x, y) in enumerate(zip(got[u], want[u]))
+                        if x != y), min(len(got[u]), len(want[u])))
+               for u in want if got[u] != want[u]}
+        if bad:
+            raise AssertionError(f"{path}: streams part from the serial "
+                                 f"run's at {bad}")
+
+    def full(path, requests, results):
+        for r in requests:
+            res = results[r.uid]
+            if (len(res.tokens) != r.max_new_tokens
+                    or res.finish_reason != "length"):
+                raise AssertionError(f"{path} {r.uid}: {len(res.tokens)} "
+                                     f"tokens, {res.finish_reason}")
+
+    def traffic(temp, tag="r"):
+        reqs = _requests(np, V, tag)
+        for r in reqs:
+            r.temperature, r.top_p = temp, (0.9 if temp > 0 else 1.0)
+        return reqs
+
+    def figures(batcher, results, wall):
+        st = batcher.stats()
+        return {**_decode_figures(batcher, len(results)), "wall_s": wall,
+                "tokens_per_s": batcher.generated_tokens / wall,
+                "dispatch_gap_p50_s": (st["overlap"]["dispatch_gap_s"]
+                                       or {}).get("p50"),
+                "host_work_p50_s": (st["overlap"]["host_work_s"]
+                                    or {}).get("p50")}
+
+    # -- serve_overlap ----------------------------------------------------
+    serial = engine_for()
+    overlap = engine_for(overlap=True)
+    turns = {"serial": [], "overlap": []}
+    want = None
+    for mode in ("serial", "overlap", "overlap", "serial"):
+        reqs = traffic(0.8)
+        res, b, counts, wall, issues = counted(
+            "serve_overlap", serial if mode == "serial" else overlap,
+            run_all(reqs))
+        full("serve_overlap", reqs, res)
+        if want is None:
+            want = streams(res)
+        same_bits(f"serve_overlap ({mode}, 0.8)", streams(res), want)
+        turns[mode].append({**figures(b, res, wall), "gated_issues": issues})
+        if mode == "overlap":
+            by_path["serve_overlap"] = counts
+    greedy = {}
+    for mode, eng in (("serial", serial), ("overlap", overlap)):
+        reqs = traffic(0.0)
+        res, b, counts, wall, _ = counted("serve_overlap", eng,
+                                          run_all(reqs))
+        full("serve_overlap", reqs, res)
+        greedy[mode] = streams(res)
+    same_bits("serve_overlap (greedy)", greedy["overlap"], greedy["serial"])
+    busy = {}
+    for mode, eng in (("serial", serial), ("overlap", overlap)):
+        dev_ms, wall_ms = _profile(torch, lambda: ContinuousBatcher(
+            eng, params, seed=SEED).run(traffic(0.8, "p")),
+            f"serve_overlap ({mode})", with_wall=True)
+        busy[mode] = sum(dev_ms.values()) / wall_ms
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B serve_overlap", "card": card,
+        "decode_block_len": KEYS_BLOCK, "temperature": 0.8,
+        "runs_in_turns": turns,
+        **{f"{k}_decode_tokens_per_s_mean": statistics.mean(
+            f["decode_tokens_per_s"] for f in v) for k, v in turns.items()},
+        "device_busy_share": busy, "same_bits_as_serial": True,
+        "greedy_same_bits_as_serial": True,
+        "launches": {k.name: by_path["serve_overlap"][k.name]
+                     for k in paths["serve_overlap"]}}), flush=True)
+    del serial, overlap
+
+    # -- serve_lane_paged -------------------------------------------------
+    rng = np.random.default_rng(SEED + 12)
+    base = _paged_requests(np, V, "r")
+    starts = {r.prompt[0] for r in base}
+    longs = []
+    for j in range(LANE_LONGS):
+        prompt = rng.integers(1, V, LANE_LONG_LEN).tolist()
+        while prompt[0] in starts:
+            prompt[0] = int(rng.integers(1, V))
+        starts.add(prompt[0])
+        longs.append(Request(f"long{j}", prompt, max_new_tokens=NEW_TOKENS))
+
+    def lane_drive(b):
+        """Phase 5's traffic, then the long prompts once LANE_DECODERS slots
+        decode; each request's finish time for its TPOT."""
+        submit, finish = {}, {}
+        for r in base:
+            b.submit(Request(**vars(r)))
+            submit[r.uid] = time.perf_counter()
+        pending = [Request(**vars(r)) for r in longs]
+        while b.busy or pending:
+            if pending and sum(s is not None and not s.prefilling
+                               for s in b._slots) >= LANE_DECODERS:
+                for r in pending:
+                    b.submit(r)
+                    submit[r.uid] = time.perf_counter()
+                pending = []
+            b.step()
+            now = time.perf_counter()
+            for uid in b._results:
+                finish.setdefault(uid, now)
+        results = b.take_results()
+        for uid, res in results.items():
+            res.tpot_s = ((finish[uid] - submit[uid] - res.ttft_s)
+                          / max(len(res.tokens) - 1, 1))
+        return results
+
+    lane_fig, lane_want, lane_counts = {}, None, None
+    for mode, kw in (("serial", {}), ("lane", {"mixed_dispatch": True}),
+                     ("lane_overlap", {"mixed_dispatch": True,
+                                       "overlap": True})):
+        eng = engine_for(paged=True, **kw)
+        res, b, counts, wall, issues = counted("serve_lane_paged", eng,
+                                               lane_drive)
+        full("serve_lane_paged", base + longs, res)
+        st = b.stats()
+        if (st["prefix_hits"], st["prefix_cached_tokens"]) != (
+                PREFIX_HITS, PREFIX_CACHED):
+            raise AssertionError(
+                f"serve_lane_paged ({mode}): prefix hits "
+                f"{st['prefix_hits']}, cached tokens "
+                f"{st['prefix_cached_tokens']} (want {PREFIX_HITS}, "
+                f"{PREFIX_CACHED})")
+        if lane_want is None:
+            lane_want, serial_chunks = streams(res), b.prefill_dispatches
+        same_bits(f"serve_lane_paged ({mode})", streams(res), lane_want)
+        if b.prefill_dispatches != serial_chunks:
+            raise AssertionError(
+                f"serve_lane_paged ({mode}): {b.prefill_dispatches} prefill "
+                f"dispatches, the serial run's {serial_chunks}")
+        if mode != "serial" and not b.lane_tokens:
+            raise AssertionError(f"serve_lane_paged ({mode}): the lane "
+                                 f"never ran")
+        tpot = sorted(res[r.uid].tpot_s for r in base)
+        lane_fig[mode] = {
+            **figures(b, res, wall), "gated_issues": issues,
+            "prefill_dispatches": b.prefill_dispatches,
+            "lane_tokens": b.lane_tokens,
+            "decode_stall_s": b.decode_stall_s,
+            "decode_stalls": b.decode_stalls,
+            "tpot_p50_s": tpot[len(tpot) // 2],
+            "tpot_p95_s": tpot[min(len(tpot) - 1,
+                                   int(0.95 * len(tpot)))],
+            "long_ttft_s": [res[r.uid].ttft_s for r in longs]}
+        if mode == "lane_overlap":
+            lane_counts = counts
+        del eng
+    by_path["serve_lane_paged"] = lane_counts
+    print(json.dumps({
+        "main_path": "SmolLM-1.7B serve_lane_paged", "card": card,
+        "prompt_lens": [len(r.prompt) for r in base + longs],
+        "long_prompts_after_decoders": LANE_DECODERS,
+        "prefix_hits": PREFIX_HITS, "prefix_cached_tokens": PREFIX_CACHED,
+        "same_bits_as_serial": True, "modes": lane_fig,
+        "launches": {k.name: lane_counts[k.name]
+                     for k in paths["serve_lane_paged"]}}), flush=True)
+
+    # -- serve_lane_spec --------------------------------------------------
+    spec_want = None
+    for mode, kw in (("serial", {}), ("lane_overlap", {
+            "mixed_dispatch": True, "overlap": True})):
+        eng = engine_for(spec_len=SPEC_LEN, drafter="ngram", **kw)
+        reqs = _requests(np, V, "r")
+        res, b, counts, wall, issues = counted("serve_lane_spec", eng,
+                                               run_all(reqs))
+        full("serve_lane_spec", reqs, res)
+        if spec_want is None:
+            spec_want = streams(res)
+            serial_fig = figures(b, res, wall)
+            continue
+        same_bits("serve_lane_spec", streams(res), spec_want)
+        gaps = {r.uid: _greedy_agrees(torch, llama, params, eng.cfg,
+                                      res[r.uid])
+                for r in reqs if r.temperature == 0}
+        by_path["serve_lane_spec"] = counts
+        print(json.dumps({
+            "main_path": "SmolLM-1.7B serve_lane_spec", "card": card,
+            "spec_len": SPEC_LEN, "drafter": "ngram",
+            "serial": serial_fig,
+            "lane_overlap": {**figures(b, res, wall),
+                             "gated_issues": issues,
+                             "lane_tokens": b.lane_tokens,
+                             "draft_proposed": b.draft_proposed,
+                             "draft_accepted": b.draft_accepted},
+            "same_bits_as_serial": True,
+            "greedy_max_logit_gap": max(gaps.values()),
+            "launches": {k.name: counts[k.name]
+                         for k in paths["serve_lane_spec"]}}), flush=True)
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def _tenant_requests(np, vocab: int, tag: str, registry) -> list:
     """The tenancy phase's 10 requests in ``TENANT_TRAFFIC``'s order, each
     under its tenant's priority and adapter slot (``registry.resolve``),
@@ -3305,7 +3646,10 @@ def main() -> int:
              "serve_slot": SERVING_KERNELS,
              "serve_slot_spec": SERVING_KERNELS,
              "sample_on_device": SERVING_KERNELS,
-             "serve_chaos": SERVING_KERNELS}
+             "serve_chaos": SERVING_KERNELS,
+             "serve_overlap": SERVING_KERNELS,
+             "serve_lane_paged": SERVING_PAGED_KERNELS,
+             "serve_lane_spec": SERVING_KERNELS}
     by_path.update(timed("serve_paged", lambda: _paged_serve_phase(
         torch, np, card, paths, KERNELS, keep=spec_off)))
     # 6. several tenants in one batch: the multi-LoRA path through H
@@ -3331,8 +3675,11 @@ def main() -> int:
     # fault-tolerant serving round on phase 3's model
     by_path.update(timed("serve_keys", lambda: _keys_and_faults_phase(
         torch, np, card, paths, KERNELS, spec_off)))
+    # 12. the overlap pipeline and the mixed prefill lane on phase 3's model
+    by_path.update(timed("serve_pipeline", lambda: _pipeline_phase(
+        torch, np, card, paths, KERNELS)))
 
-    # 12. the closing lines: each kernel's launches on its own path (the
+    # 13. the closing lines: each kernel's launches on its own path (the
     # first path that runs it: serving for A, B, C; each paged run for its
     # variant of C; the tenancy run for H; int8 serving for C-int8 and G;
     # training for D, E, F), and on each path

@@ -13,8 +13,7 @@ and ``tests/test_torch_config.py`` holds the port to it:
 
 - declared by a section below and read;
 - refused at load when set to a value the port does not behave as
-  (``REFUSED_AT_LOAD``): disaggregation roles, overlap, mixed dispatch
-  and dp sharding;
+  (``REFUSED_AT_LOAD``): disaggregation roles and dp sharding;
 - inert (``INERT_FIELDS``, each with its reason): the field changes
   nothing while the port runs as it does, for example
   ``distributed.use_cpu`` (the port runs on the card unless its caller
@@ -341,9 +340,18 @@ class InferenceConfig:
     # key per admitted request, the token at sequence index p keyed
     # fold_in(base, p - 1), so a stream does not depend on how its tokens
     # were grouped into rounds and equals the JAX package's token for
-    # token; "auto" = "slot" under overlap or mixed dispatch (both refused
-    # at load), else "round".
+    # token; "auto" = "slot" under overlap or mixed dispatch, else
+    # "round".
     key_schedule: str = "auto"
+    # The overlap pipeline: the batcher issues round N + 1 before it reads
+    # round N's results back, so delivery, drafting and admission run
+    # while the card executes. Needs the slot schedule.
+    overlap: bool = False
+    # The mixed prefill lane: every decode block or verify also runs one
+    # prefill_chunk-wide chunk of a long (or radix-resumed) prompt for one
+    # slot, so no solo prefill dispatch stalls the decoders. Needs the
+    # slot schedule.
+    mixed_dispatch: bool = False
 
     def __post_init__(self):
         # from_dict hands the nested sections through as dicts (unknown
@@ -366,8 +374,6 @@ class InferenceConfig:
 REFUSED_AT_LOAD = {
     ("inference", "role"): ("both",),
     ("inference", "dp_size"): (1,),
-    ("inference", "overlap"): (False,),
-    ("inference", "mixed_dispatch"): (False,),
 }
 
 # (section, field) -> why the port may leave it unread: JAX fields that
@@ -621,10 +627,31 @@ class Config:
             raise ValueError(
                 f"unknown inference.attend_impl {inf.attend_impl!r} "
                 "(dense|flash)")
+        if not isinstance(inf.overlap, bool):
+            raise ValueError(
+                f"inference.overlap must be a JSON boolean (true/false), "
+                f"got {inf.overlap!r}")
         if inf.key_schedule not in ("auto", "round", "slot"):
             raise ValueError(
                 f"unknown inference.key_schedule {inf.key_schedule!r} "
                 "(auto|round|slot)")
+        if inf.overlap and inf.key_schedule == "round":
+            raise ValueError(
+                "inference.overlap requires the per-slot key schedule — "
+                "round-keyed sampling ties token streams to round "
+                "boundaries, which the lookahead pipeline changes; set "
+                "inference.key_schedule: 'slot' (or leave it 'auto')")
+        if not isinstance(inf.mixed_dispatch, bool):
+            raise ValueError(
+                f"inference.mixed_dispatch must be a JSON boolean "
+                f"(true/false), got {inf.mixed_dispatch!r}")
+        if inf.mixed_dispatch and inf.key_schedule == "round":
+            raise ValueError(
+                "inference.mixed_dispatch requires the per-slot key "
+                "schedule — round-keyed sampling ties token streams to "
+                "round boundaries, which fusing the prefill lane into "
+                "decode rounds changes; set inference.key_schedule: "
+                "'slot' (or leave it 'auto')")
         if inf.weight_dtype not in ("bf16", "int8"):
             raise ValueError(
                 f"unknown inference.weight_dtype {inf.weight_dtype!r} "

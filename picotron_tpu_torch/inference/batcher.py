@@ -69,8 +69,38 @@ unusable is not retried: it raises out of ``step()``. A request with
 admission, at the start of a round, and its slot is refilled in the same
 round.
 
-Not ported yet: overlap, the mixed prefill lane and the
-``picotron_tenant_*`` and ``picotron_spec_*`` metric families.
+The overlap pipeline (``inference.overlap``, ``_step_overlap``): each
+step issues round N + 1 before it reads round N back, so delivery, finish
+detection, drafting and admission run while the card executes. Issue
+takes its input tokens from the device-held row ``_dev_last`` (the last
+round's ``next_tok`` output, patched where a slot is seated), uploads
+every host operand through pinned buffers and queues the round's
+read-back into pinned buffers behind an event: nothing at issue waits
+for the card, and the sync stage waits on that event alone. What the host
+sees is a round stale: budgets may overshoot (the device stops at EOS and
+budget itself, and the walk cuts at the host's rules), drafts guess from
+the round before (the slot schedule's sample-and-match makes the emitted
+stream independent of them), and a slot that finishes while a round is in
+flight bumps its seat epoch, so the sync drops that round's rows
+(exactly-once delivery). A host fault at issue drains the pipeline and
+reruns the round through the serial recovery (``_round_fallback``); a
+fault on the card first shows at the sync and, as a lost device, raises
+out of ``step()``. The paged host lengths advance at the sync
+(``engine.defer_advance``).
+
+The mixed prefill lane (``inference.mixed_dispatch``): a prompt longer
+than one chunk, or a paged prompt with a radix hit, is seated at once as
+a prefilling slot (budget 0) and fed one chunk a round through the decode
+or verify dispatch (``_lane_feed``; the prefill gate's round budget is
+the feed rate), and its first token lands with its final chunk
+(``_lane_land``). A cold prompt at or under one chunk still prefills
+alone. One lane: a lane-worthy request waits while the lane is busy.
+``stats()`` adds the ``overlap`` payload (issue-to-issue gaps, host work a
+step, the device's share of the wall time) and the lane's tallies.
+
+Not ported yet: dp serving's rebalance under overlap and its per-shard
+lanes, the JAX benchmark's synthetic device wait, and the ``picotron_*``
+metric families and request spans.
 """
 
 from __future__ import annotations
@@ -95,6 +125,21 @@ from picotron_tpu_torch.inference.kv_cache import cache_bytes
 from picotron_tpu_torch.models.llama import param_bytes
 from picotron_tpu_torch.resilience.retry import retry
 from picotron_tpu_torch.utils import log0
+
+
+# the retained recent samples of the issue-to-issue gaps and the host work
+# a step (the JAX registry's histogram window)
+SAMPLE_WINDOW = 4096
+
+
+def _percentiles(samples) -> Optional[dict]:
+    """{p50, p95, p99, n} of a sample window (seconds), None when empty."""
+    if not samples:
+        return None
+    p50, p95, p99 = np.percentile(np.asarray(samples, np.float64),
+                                  [50, 95, 99])
+    return {"p50": float(p50), "p95": float(p95), "p99": float(p99),
+            "n": len(samples)}
 
 
 def device_lost(e: BaseException) -> bool:
@@ -172,6 +217,10 @@ class _Slot:
     queue_wait_s: Optional[float] = None
     ttft_s: Optional[float] = None
     dispatches: int = 0
+    # mixed dispatch: the slot's prompt is still being fed through the
+    # lane; it rides every dispatch with budget 0 until its final chunk
+    # lands its first token
+    prefilling: bool = False
 
 
 class ContinuousBatcher:
@@ -266,8 +315,39 @@ class ContinuousBatcher:
         self.draft_proposed = 0
         self.draft_accepted = 0
         # host wall time of the decode and draft-verify rounds, results
-        # read back included
+        # read back included (under overlap: the issue and sync stages)
         self.decode_seconds = 0.0
+        # ---- the overlap pipeline (inference.overlap) ----------------------
+        self._overlap = bool(engine.overlap)
+        if self._overlap:
+            engine.defer_advance = True
+        # seat epochs, bumped when a slot finishes and when one is seated:
+        # the round in flight keeps the epochs it was issued under, and its
+        # sync drops every row whose seat moved since
+        self._epoch = np.zeros(n, np.int64)
+        self._inflight = None  # the issued round not yet read back
+        self._dev_last = None  # the device's [slots] last-token row
+        # issue-to-issue gaps (host time from one round's read-back to the
+        # next issue; 0.0 while a round is in flight at issue) and each
+        # step's host work (its wall time less its waits on the card), in
+        # both modes; the summed issue-to-read-back windows over the wall
+        # time from the first issue to the last read-back
+        self._gaps: deque = deque(maxlen=SAMPLE_WINDOW)
+        self._host_work: deque = deque(maxlen=SAMPLE_WINDOW)
+        self._t_last_sync_end = None
+        self._step_sync_wait = 0.0
+        self._ov_device_s = 0.0
+        self._ov_t0 = self._ov_t1 = None
+        # ---- the mixed prefill lane (inference.mixed_dispatch) -------------
+        self._mixed = bool(engine.mixed)
+        self._lanes: list = [None]  # one lane record (dp_size is 1)
+        self._lane_scratch = None  # a dispatch's (first token, lane hidden)
+        # prompt tokens fed through the lane; seconds and count of the solo
+        # prefills that ran while a decoder was seated (the stall the lane
+        # removes)
+        self.lane_tokens = 0
+        self.decode_stall_s = 0.0
+        self.decode_stalls = 0
 
     @property
     def accept_rate(self) -> Optional[float]:
@@ -313,7 +393,10 @@ class ContinuousBatcher:
 
     @property
     def busy(self) -> bool:
-        return bool(self._pending) or any(s is not None for s in self._slots)
+        """Requests wait, a slot is occupied, or a round is in flight."""
+        return (bool(self._pending)
+                or any(s is not None for s in self._slots)
+                or self._inflight is not None)
 
     # ---- paged admission pricing ------------------------------------------
 
@@ -426,7 +509,13 @@ class ContinuousBatcher:
         let through on TTFT pressure). A
         speculative engine adds ``spec_len_effective`` (and, once a draft
         was proposed, ``accept_rate``; with a controller its decisions
-        under ``spec_controller``)."""
+        under ``spec_controller``). ``overlap`` holds the issue-to-issue
+        gaps and each step's host work (percentiles over the recent
+        window) and, once a round was read back, the device-busy seconds
+        (summed issue-to-read-back windows), the wall time and their ratio;
+        ``mixed`` whether the lane runs and whether it is mid-prompt; the
+        lane's prompt tokens and the solo prefills' decode stall beside
+        them."""
         d = {
             **self.counters,
             "decode_dispatches": self.decode_dispatches,
@@ -452,6 +541,20 @@ class ContinuousBatcher:
         if self._tenant_stats:
             d["tenants"] = {name: dict(st)
                             for name, st in self._tenant_stats.items()}
+        ov = {"enabled": self._overlap,
+              "dispatch_gap_s": _percentiles(self._gaps),
+              "host_work_s": _percentiles(self._host_work)}
+        if self._ov_t0 is not None and self._ov_t1 is not None:
+            wall = max(self._ov_t1 - self._ov_t0, 1e-9)
+            ov.update(device_busy_s=self._ov_device_s, wall_s=wall,
+                      overlap_efficiency=min(1.0, self._ov_device_s / wall))
+        d["overlap"] = ov
+        d["mixed"] = {"enabled": self._mixed,
+                      "lanes_active": sum(ln is not None
+                                          for ln in self._lanes)}
+        d["prefill_lane_tokens"] = self.lane_tokens
+        d["decode_stall_s"] = self.decode_stall_s
+        d["decode_stalls"] = self.decode_stalls
         return d
 
     def take_results(self) -> dict:
@@ -493,6 +596,14 @@ class ContinuousBatcher:
         for d in self._drafters.values():
             d.forget(s.req.uid)
         self._slots[i] = None
+        # a round in flight that was issued against this occupant drops
+        # the seat's rows at its sync
+        self._epoch[i] += 1
+        ln = self._lanes[0]
+        if ln is not None and ln["slot"] == i:
+            # a prefilling occupant retired mid-prompt abandons the lane;
+            # the epoch bump isolates a chunk still in flight
+            self._lanes[0] = None
         self._cache = self.engine.release(self._cache, i)
         self._last_tok[i] = 0
         self._temp[i] = 0.0
@@ -532,6 +643,16 @@ class ContinuousBatcher:
         admission)."""
         self._key, sub = prng.split(self._key)
         return sub
+
+    def _dev_tok(self) -> torch.Tensor:
+        """The device-held [slots] last-token row (overlap): a round's input
+        tokens come from here, so issuing it never waits for the host to
+        read the round before. A slot program's ``next_tok`` output
+        replaces it at issue; seating a slot writes that slot's entry in
+        place, after the round in flight on the stream."""
+        if self._dev_last is None:
+            self._dev_last = self.engine._tokens(self._last_tok)
+        return self._dev_last
 
     def _retried(self, fn):
         """``fn()`` under the dispatch retry budget."""
@@ -575,15 +696,54 @@ class ContinuousBatcher:
             self._hidden[i] = hidden[0][0]
         return logits
 
+    def _seat(self, req: Request, i: int, submit_t, prefilling=False):
+        """Seat ``req`` in slot ``i``: its slot record, a new seat epoch,
+        its sampling row and adapter, the controller's and the drafters'
+        fresh start."""
+        now = self._clock()
+        slot = _Slot(req, submit_t=submit_t, prefilling=prefilling,
+                     deadline=(now + req.timeout_s
+                               if req.timeout_s is not None else None))
+        if submit_t is not None:
+            slot.queue_wait_s = now - submit_t
+        self._slots[i] = slot
+        self._epoch[i] += 1
+        self._adapter[i] = (req.adapter_slot
+                            if self.engine.adapters is not None else 0)
+        # a new request: the controller restarts the slot's policy and
+        # stateful drafters drop the previous occupant's index
+        if self.controller is not None:
+            self.controller.reset(i, tpot_slo_s=(
+                req.tpot_slo_ms / 1000.0
+                if req.tpot_slo_ms is not None else None))
+        for d in self._drafters.values():
+            d.begin(req.uid)
+        self._temp[i] = req.temperature
+        self._top_k[i] = req.top_k
+        self._top_p[i] = req.top_p
+        self._eos[i] = req.eos_id if req.eos_id is not None else -1
+
+    def _first_token(self, i: int, first: int) -> None:
+        """A seated slot's first token: under overlap it goes into the
+        device row the next round reads as well."""
+        if self._overlap:  # fill_: no copy that waits for the card
+            self._dev_tok()[i: i + 1].fill_(first)
+        self._token_done(i, first)
+
     def _admit(self) -> None:
         dev = self.engine.device
         self._round_prefill_tokens = 0
         for i in range(len(self._slots)):
             if self._slots[i] is not None:
                 continue
-            req = self._next_admissible()
+            req, lane = self._next_admissible()
             if req is None:
+                if lane:  # the lane is busy: this seat waits
+                    continue
                 return
+            if lane:
+                self._lane_start(req, i)
+                continue
             submit_t = self._submit_t.pop(req.uid, None)
             # the first token's key: the round schedule's generator, or the
             # slot's base key (one split of the chain per admission, taken
@@ -606,6 +766,11 @@ class ContinuousBatcher:
 
             self.counters["admitted"] += 1
             self._tstat(req)["requests"] += 1
+            # a solo prefill stalls every seated decoder behind it: the
+            # stall the mixed lane removes, timed in both modes
+            stall0 = (self._clock()
+                      if any(s is not None and not s.prefilling
+                             for s in self._slots) else None)
             try:
                 logits = self._retried(attempt)
             except Exception as e:  # noqa: BLE001 - isolated to this request
@@ -619,27 +784,12 @@ class ContinuousBatcher:
                     req.uid, list(req.prompt), [], "error")
                 self._cache = self.engine.release(self._cache, i)
                 continue
+            finally:
+                if stall0 is not None:
+                    self.decode_stall_s += self._clock() - stall0
+                    self.decode_stalls += 1
             self._round_prefill_tokens += len(req.prompt)
-            now = self._clock()
-            slot = _Slot(req, submit_t=submit_t, deadline=(
-                now + req.timeout_s if req.timeout_s is not None else None))
-            if submit_t is not None:
-                slot.queue_wait_s = now - submit_t
-            self._slots[i] = slot
-            self._adapter[i] = (req.adapter_slot
-                                if self.engine.adapters is not None else 0)
-            # a new request: the controller restarts the slot's policy and
-            # stateful drafters drop the previous occupant's index
-            if self.controller is not None:
-                self.controller.reset(i, tpot_slo_s=(
-                    req.tpot_slo_ms / 1000.0
-                    if req.tpot_slo_ms is not None else None))
-            for d in self._drafters.values():
-                d.begin(req.uid)
-            self._temp[i] = req.temperature
-            self._top_k[i] = req.top_k
-            self._top_p[i] = req.top_p
-            self._eos[i] = req.eos_id if req.eos_id is not None else -1
+            self._seat(req, i, submit_t)
             if self.engine.sample_on_device:
                 first = logits  # drawn in the dispatch
             else:
@@ -655,7 +805,7 @@ class ContinuousBatcher:
                         greedy_only=req.temperature <= 0)
                 else:
                     first = sampling.sample(logits, self._gen, *args)
-            self._token_done(i, int(first[0]))
+            self._first_token(i, int(first[0]))
 
     def _pick(self) -> int:
         """Index of the next admission candidate in the queue: the highest
@@ -672,36 +822,47 @@ class ContinuousBatcher:
                 best = j
         return best
 
-    def _prefill_gate(self, req: Request) -> bool:
+    def _prefill_gate(self, req: Request, tokens: Optional[int] = None,
+                      submit_t: Optional[float] = None) -> bool:
         """Whether ``req`` may prefill this round. While a live slot carries
         a TPOT SLO, a round admits at most one ``prefill_chunk`` of prompt
         tokens (its prefill stalls every decoder behind it); the first
         admission of a round always passes. A request that has spent half
         its TTFT budget waiting preempts the cap. Both decisions are
-        tallied per tenant."""
+        tallied per tenant. ``tokens`` prices the decision (default: the
+        whole prompt, which a serial admission prefills this round); the
+        lane prices one chunk, so the gate's round budget is the lane's
+        feed rate. ``submit_t`` stands in for the queue's clock (a lane's
+        request left the queue when it was seated)."""
+        if tokens is None:
+            tokens = len(req.prompt)
         if self._round_prefill_tokens == 0:
             return True
         if not any(s is not None and s.req.tpot_slo_ms is not None
                    for s in self._slots):
             return True
         if req.ttft_slo_ms is not None:
-            t0 = self._submit_t.get(req.uid)
+            t0 = (submit_t if submit_t is not None
+                  else self._submit_t.get(req.uid))
             if (t0 is not None and (self._clock() - t0) * 1000.0
                     >= req.ttft_slo_ms / 2.0):
                 self._tstat(req)["prefill_preempts"] += 1
                 return True
-        if (self._round_prefill_tokens + len(req.prompt)
+        if (self._round_prefill_tokens + tokens
                 <= self.engine.prefill_chunk):
             return True
         self._tstat(req)["prefill_deferred"] += 1
         return False
 
-    def _next_admissible(self):
-        """Take the next request to admit (``_pick``), or None to stop
-        admitting this round. Paged: a request that can never fit the pool
-        is shed here; one that does not fit now waits, since admitting it
-        could strand a live slot mid-decode. A request the prefill gate
-        defers waits for the next round."""
+    def _next_admissible(self) -> tuple:
+        """The next request to admit (``_pick``) and whether it prefills
+        through the lane, or (None, False) to stop admitting this round,
+        or (None, True) when the request wants the lane and the lane is
+        busy (the request stays queued; this seat waits). Paged: a request
+        that can never fit the pool is shed here; one that does not fit
+        now waits, since admitting it could strand a live slot mid-decode.
+        A request the prefill gate defers waits for the next round (the
+        lane's chunks pay the gate as they are fed)."""
         while self._pending:
             j = self._pick()
             req = self._pending[j]
@@ -711,13 +872,178 @@ class ContinuousBatcher:
                     del self._pending[j]
                     self._shed(req)
                     continue
-                if not self.paged.can_admit(need):
-                    return None
-            if not self._prefill_gate(req):
-                return None
+            lane = self._lane_wants(req)
+            if lane and self._lanes[0] is not None:
+                return None, True
+            if self.paged is not None and not self.paged.can_admit(need):
+                return None, False
+            if not lane and not self._prefill_gate(req):
+                return None, False
             del self._pending[j]
-            return req
-        return None
+            return req, lane
+        return None, False
+
+    # ---- the mixed prefill lane -------------------------------------------
+
+    def _lane_wants(self, req: Request) -> bool:
+        """Whether ``req`` prefills through the lane rather than alone: a
+        prompt longer than one chunk (the serial path runs the same chunks,
+        as stalls), or a paged prompt with a radix hit (the serial path
+        resumes past it in chunks: again the lane's computation). A cold
+        prompt at or under one chunk prefills alone: its one-shot bucketed
+        prefill is another computation, and the streams that do not need
+        the lane keep their bits."""
+        if not self._mixed:
+            return False
+        if len(req.prompt) > self.engine.prefill_chunk:
+            return True
+        if self.paged is None:
+            return False
+        return self.paged.peek_prefix([int(t) for t in req.prompt],
+                                      salt=req.tenant) > 0
+
+    def _lane_start(self, req: Request, i: int) -> None:
+        """Seat ``req`` in free slot ``i`` as a prefilling occupant and open
+        the lane on it: the prompt goes through the dispatches one chunk a
+        round (``_lane_feed``) and no prefill runs alone. The admission's
+        accounting is the serial seat's; the first token (and the TTFT)
+        comes when the final chunk lands. The base key is split here, as a
+        serial admission splits it, and the final chunk's draw folds it at
+        the prompt's last row."""
+        submit_t = self._submit_t.pop(req.uid, None)
+        self._base_keys[i] = self._split().numpy()
+        fold = prng.fold_in(self._base_keys[i],
+                            len(req.prompt) - 1).numpy()
+        ids = [int(t) for t in req.prompt]
+        cached = 0
+        if self.paged is not None:
+            self.paged.priced[i] = self.page_commitment(req)
+            cached = self.paged.match_prefix(i, ids, salt=req.tenant)
+            if cached > 0:
+                # the shared prefix parked, ready to resume past: the
+                # serial radix-hit admission without its chunks
+                self._cache = self.engine.seat_slot(self._cache, i, cached)
+        self.counters["admitted"] += 1
+        self._tstat(req)["requests"] += 1
+        self._seat(req, i, submit_t, prefilling=True)
+        self._lanes[0] = dict(slot=i, epoch=int(self._epoch[i]), req=req,
+                              ids=ids, cached=cached, done_end=cached,
+                              fed_end=cached, key=fold, chunks=0)
+
+    def _lane_feed(self) -> tuple:
+        """This round's lane operand: the lane's next chunk, if its prompt
+        has one left and the prefill gate lets the chunk's tokens through
+        (a deferred chunk counts as a deferral). Returns (``lanes`` for
+        ``decode_block``/``verify`` or None, the feed records for
+        ``_lane_land``). Under overlap the lane feeds one chunk ahead of
+        its last landed row (``fed_end`` past ``done_end``): the chunk in
+        flight runs first on the stream, so the next one's prefix is
+        parked when it runs."""
+        ln = self._lanes[0]
+        if ln is None:
+            return None, ()
+        i = ln["slot"]
+        s = self._slots[i]
+        if (s is None or s.req is not ln["req"]
+                or self._epoch[i] != ln["epoch"]):
+            self._lanes[0] = None
+            return None, ()
+        ids, C = ln["ids"], self.engine.prefill_chunk
+        s0 = ln["fed_end"]
+        if s0 >= len(ids):
+            return None, ()  # the final chunk is in flight
+        end = min(s0 + C, len(ids))
+        if not self._prefill_gate(s.req, tokens=end - s0,
+                                  submit_t=s.submit_t):
+            return None, ()
+        # prefill_chunked's convention: an absolute start on the paged
+        # layout, the window slid back near its end on the contiguous one
+        w0 = (s0 if self.paged is not None
+              else min(s0, self.engine.max_seq_len - C))
+        entry = dict(slot=i, tokens=ids[w0:end], start=w0)
+        if self.engine.sample_on_device:
+            entry.update(key=ln["key"], temperature=s.req.temperature,
+                         top_k=s.req.top_k, top_p=s.req.top_p)
+        if self.engine.adapters is not None:
+            entry["adapter"] = int(s.req.adapter_slot)
+        self._round_prefill_tokens += end - s0
+        self.lane_tokens += end - s0
+        ln["fed_end"] = end
+        return [entry], [dict(lane=ln, end=end)]
+
+    def _lane_first(self, lane_out, feeds):
+        """The first token [1] of the prompt whose final chunk ``feeds``
+        carried, on the device (None when no final chunk was fed): the
+        ``sample_on_device`` lane's own draw, or the draw from its logits
+        with the fold key at the prompt's last row, as a serial admission
+        draws it. Queued without a host sync."""
+        final = [f["lane"] for f in feeds
+                 if f["end"] >= len(f["lane"]["ids"])]
+        if not final or lane_out is None:
+            return None
+        if self.engine.sample_on_device:
+            return lane_out
+        eng, req = self.engine, final[0]["req"]
+        return sampling.sample_rowkeys(
+            lane_out, eng._key_rows(final[0]["key"])[None],
+            eng._upload([req.temperature], np.float32),
+            eng._upload([req.top_k], np.int32),
+            eng._upload([req.top_p], np.float32),
+            greedy_only=req.temperature <= 0)
+
+    def _strip_lane(self, out: tuple, feeds) -> tuple:
+        """A mixed engine's dispatch tuple without its lane outputs, which
+        go to ``_lane_scratch`` as (first token, lane hidden) for
+        ``_lane_land``. An isolation re-dispatch runs the chunk again on
+        the same rows with the same bytes, so stashing again changes
+        nothing."""
+        if not self._mixed:
+            return out
+        n = 2 if self.engine.return_hidden else 1
+        lane = out[-n:]
+        self._lane_scratch = (self._lane_first(lane[0], feeds),
+                              lane[1] if n == 2 else None)
+        return out[:-n]
+
+    def _lane_land(self, feeds) -> None:
+        """Land one round's lane chunk: the lane's confirmed row count, its
+        paged host length, the chunk's prefill dispatch and, with the
+        prompt's final chunk, the first token (the slot decodes from the
+        next round). A round that delivered nothing (every isolated
+        dispatch failed) rewinds the feed, so the chunk runs again: its
+        rewrite is the same bytes."""
+        scratch, self._lane_scratch = self._lane_scratch, None
+        if not feeds:
+            return
+        if scratch is None:
+            for f in feeds:
+                if self._lanes[0] is f["lane"]:
+                    f["lane"]["fed_end"] = f["lane"]["done_end"]
+            return
+        first_tok, lane_hid = scratch
+        for f in feeds:
+            ln = f["lane"]
+            if self._lanes[0] is not ln:
+                continue  # dropped while the chunk flew
+            i = ln["slot"]
+            s = self._slots[i]
+            if s is None or self._epoch[i] != ln["epoch"]:
+                self._lanes[0] = None
+                continue
+            self.prefill_dispatches += 1
+            ln["chunks"] += 1
+            ln["done_end"] = f["end"]
+            if self.paged is not None:
+                self.paged.set_len(i, f["end"])
+            if f["end"] < len(ln["ids"]):
+                continue
+            if self._hidden is not None and lane_hid is not None:
+                self._hidden[i] = lane_hid[0]
+            if self.paged is not None:
+                self.paged.register_prompt(i, ln["ids"], salt=s.req.tenant)
+            self._lanes[0] = None
+            s.prefilling = False
+            self._first_token(i, int(first_tok.reshape(-1)[0]))
 
     def _expire_deadlines(self) -> None:
         """Retire every slot past its deadline with reason "timeout". Runs
@@ -727,6 +1053,8 @@ class ContinuousBatcher:
         for i, s in enumerate(self._slots):
             if s is not None and s.deadline is not None and now >= s.deadline:
                 self._finish(i, "timeout")
+
+    # ---- speculation ------------------------------------------------------
 
     def _plan_spec(self) -> tuple:
         """Each slot's draft length and drafter kind for the next round, or
@@ -755,15 +1083,18 @@ class ContinuousBatcher:
         only slots that emitted tokens move (a solo re-dispatch moves its
         own row)."""
         if self._hidden is not None and hid is not None:
-            moved = torch.as_tensor(np.asarray(counts) > 0).to(hid.device)
+            moved = self.engine._upload(np.asarray(counts) > 0, np.bool_)
             self._hidden = torch.where(moved[:, None], hid, self._hidden)
 
     def _draft(self, lens, kinds) -> np.ndarray:
         """The [slots, spec_len + 1] verify block: column 0 each slot's
         last token, then ``lens[i]`` drafts of its drafter (zeros past
         them). Learned slots draft together in one pass over the hidden
-        rows, timed as a "draft" dispatch; host drafters propose per slot
-        from its history."""
+        rows, timed as a "draft" dispatch (it reads its drafts back, as
+        the JAX package's does); host drafters propose per slot from its
+        history. Under overlap this runs while the card works, from host
+        state a round stale, and the round takes column 0 from the device
+        row instead: a stale draft costs acceptance, never a token."""
         g = self.engine.spec_len
         tokens = np.zeros((len(self._slots), g + 1), np.int32)
         learned = [i for i, s in enumerate(self._slots)
@@ -812,23 +1143,49 @@ class ContinuousBatcher:
         schedule's generator."""
         return self._base_keys if self._slot_keys else self._gen
 
-    def _spec_round(self, budget, lens, kinds) -> tuple:
+    def _note_issue(self, t0: float) -> None:
+        """Tally the issue-to-issue gap: the host time from the last
+        round's read-back to this issue, the bubble overlap closes (0.0
+        while a round is still in flight at issue)."""
+        if self._ov_t0 is None:
+            self._ov_t0 = t0
+        if self._inflight is not None:
+            gap = 0.0
+        elif self._t_last_sync_end is None:
+            return  # the first round has nothing to gap against
+        else:
+            gap = max(0.0, t0 - self._t_last_sync_end)
+        self._gaps.append(gap)
+
+    def _note_sync_end(self, t_issue: float, t_sync: float,
+                       t_end: float) -> None:
+        """A round read back: its wait, and its issue-to-read-back window
+        (the device's share of the wall time counts these)."""
+        self._step_sync_wait += t_end - t_sync
+        self._t_last_sync_end = t_end
+        self._ov_device_s += max(0.0, t_end - t_issue)
+        self._ov_t1 = t_end
+
+    def _spec_round(self, budget, lens, kinds, lanes=None,
+                    feeds=()) -> tuple:
         """One draft-verify round: the drafts (``_draft``), one
-        ``engine.verify`` dispatch over them, ragged at ``lens`` and
-        fault-isolated like a decode round, and the draft counts. Returns
-        (emitted [slots, spec_len + 1], counts [slots], failed slots) on
-        the host."""
+        ``engine.verify`` dispatch over them (with the lane's chunk),
+        ragged at ``lens`` and fault-isolated like a decode round, and the
+        draft counts. Returns (emitted [slots, spec_len + 1], counts
+        [slots], failed slots) on the host."""
         tokens = self._draft(lens, kinds)
 
         def dispatch(b):
             t0 = self._clock()
-            out = self.engine.verify(
+            self._note_issue(t0)
+            out = self._strip_lane(self.engine.verify(
                 self.params, self._cache, tokens, self._keys_arg(),
                 self._eos, b, self._temp, self._top_k, self._top_p,
-                draft_len=lens,
+                draft_len=lens, lanes=lanes,
                 adapter_ids=(self._adapter if self.engine.adapters is not None
-                             else None))
+                             else None)), feeds)
             self._cache, emitted, counts, accepted = out[:4]
+            t_sync = self._clock()
             emitted, counts = emitted.cpu().numpy(), counts.cpu().numpy()
             accepted = accepted.cpu().numpy()
             # the slot program's next-token output is the overlap
@@ -836,7 +1193,9 @@ class ContinuousBatcher:
             hid = out[-1] if self.engine.return_hidden else None
             self._merge_hidden(hid, counts)
             self.decode_dispatches += 1
-            self.latency.observe("verify", self._clock() - t0)
+            t1 = self._clock()
+            self._note_sync_end(t0, t_sync, t1)
+            self.latency.observe("verify", t1 - t0)
             return emitted, counts, accepted
 
         emitted, counts, accepted, failed = self._guarded_round(dispatch,
@@ -844,23 +1203,29 @@ class ContinuousBatcher:
         self._spec_account(lens, accepted, budget, failed)
         return emitted, counts, failed
 
-    def _decode_round(self, budget) -> tuple:
-        """One ``decode_block`` round, fault-isolated. Returns (tokens
-        [slots, block], counts [slots], failed slots) on the host."""
+    def _decode_round(self, budget, lanes=None, feeds=()) -> tuple:
+        """One ``decode_block`` round (with the lane's chunk),
+        fault-isolated. Returns (tokens [slots, block], counts [slots],
+        failed slots) on the host."""
 
         def dispatch(b):
             t0 = self._clock()
-            out = self.engine.decode_block(
+            self._note_issue(t0)
+            out = self._strip_lane(self.engine.decode_block(
                 self.params, self._cache, self._last_tok, self._keys_arg(),
                 self._eos, b, self._temp, self._top_k, self._top_p,
+                lanes=lanes,
                 adapter_ids=(self._adapter if self.engine.adapters is not None
-                             else None))
+                             else None)), feeds)
             self._cache, toks, counts = out[:3]
+            t_sync = self._clock()
             toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
             hid = out[-1] if self.engine.return_hidden else None
             self._merge_hidden(hid, counts)
             self.decode_dispatches += 1
-            self.latency.observe("decode", self._clock() - t0)
+            t1 = self._clock()
+            self._note_sync_end(t0, t_sync, t1)
+            self.latency.observe("decode", t1 - t0)
             return toks, counts, None
 
         toks, counts, _, failed = self._guarded_round(dispatch, budget)
@@ -871,11 +1236,15 @@ class ContinuousBatcher:
     def _cache_lost(self) -> None:
         """A failed dispatch left the cache unrestorable: every parked
         sequence is gone, so every occupied slot finishes "error" and the
-        cache is emptied in place; the queue is served on."""
+        cache is emptied in place; the queue is served on. A round in
+        flight and the device token row die with it."""
         self._cache = self.engine.reset_cache(self._cache)
+        self._inflight = None
+        self._dev_last = None
         for i, s in enumerate(self._slots):
             if s is not None:
                 self._finish(i, "error")
+        self._lanes[0] = None
 
     def _guarded_round(self, dispatch, budget) -> tuple:
         """Run one decode or verify round with fault recovery.
@@ -945,30 +1314,22 @@ class ContinuousBatcher:
             toks_out = empty[0]
         return toks_out, counts_out, aux_out, failed
 
-    def step(self) -> None:
-        """Retire overdue slots, admit waiting requests into free slots,
-        then advance every occupied slot by one decode block (or, on a
-        speculative engine, one draft-verify round, ragged under the
-        controller, or a decode block once the controller has turned every
-        occupied slot off), retire the slots whose dispatches failed alone
-        and walk the emitted tokens. An engine fault never raises out of
-        here, unless it lost the device."""
-        self._expire_deadlines()
-        self._admit()
-        if not any(s is not None for s in self._slots):
-            return
+    # ---- the step ---------------------------------------------------------
+
+    def _budgets(self) -> np.ndarray:
+        """This round's budget row: each decoding slot's remaining tokens,
+        0 for free and prefilling slots."""
         for i, s in enumerate(self._slots):
-            self._budget[i] = self._remaining(i) if s is not None else 0
-        budget = self._budget.copy()
-        lens = kinds = None
-        if self.engine.spec_len > 0:
-            lens, kinds = self._plan_spec()
-        t0 = self._clock()
-        if lens is not None:
-            toks, counts, failed = self._spec_round(budget, lens, kinds)
-        else:
-            toks, counts, failed = self._decode_round(budget)
-        self.decode_seconds += self._clock() - t0
+            self._budget[i] = (self._remaining(i)
+                               if s is not None and not s.prefilling else 0)
+        return self._budget.copy()
+
+    def _deliver(self, budget, toks, counts, failed) -> None:
+        """The tail of a round on the host: the slots' dispatch counts and
+        the controller's tick, the failed slots retired "error", and the
+        emitted tokens walked through ``_token_done`` (the device already
+        stopped each row at EOS and budget; the walk applies the same rules
+        on the host, and stops at a slot that retires)."""
         for i, s in enumerate(self._slots):
             if s is not None and budget[i] > 0 and i not in failed:
                 s.dispatches += 1
@@ -979,12 +1340,212 @@ class ContinuousBatcher:
         for i in failed:
             if self._slots[i] is not None:
                 self._finish(i, "error")
-        for i, s in enumerate(self._slots):
-            if s is None:
-                continue
-            # the device already stopped this row at EOS/budget; walking
-            # the produced prefix applies the same rules host-side
+        for i in range(len(self._slots)):
             for t in toks[i, : counts[i]]:
                 if self._slots[i] is None:
                     break
                 self._token_done(i, int(t))
+
+    def step(self) -> None:
+        """Retire overdue slots, admit waiting requests into free slots
+        (or into the lane), then advance every decoding slot by one decode
+        block (or, on a speculative engine, one draft-verify round, ragged
+        under the controller, or a decode block once the controller has
+        turned every occupied slot off) with the lane's next chunk in the
+        same dispatch, retire the slots whose dispatches failed alone, walk
+        the emitted tokens and land the chunk. Under ``inference.overlap``
+        the round is pipelined instead (``_step_overlap``). An engine fault
+        never raises out of here, unless it lost the device."""
+        if self._overlap:
+            self._step_overlap()
+            return
+        t_step0 = self._clock()
+        self._step_sync_wait = 0.0
+        self._expire_deadlines()
+        self._admit()
+        if not any(s is not None for s in self._slots):
+            return
+        budget = self._budgets()
+        lanes, feeds = self._lane_feed()
+        self._lane_scratch = None
+        lens = kinds = None
+        if self.engine.spec_len > 0:
+            lens, kinds = self._plan_spec()
+        t0 = self._clock()
+        if lens is not None:
+            toks, counts, failed = self._spec_round(budget, lens, kinds,
+                                                    lanes, feeds)
+        else:
+            toks, counts, failed = self._decode_round(budget, lanes, feeds)
+        self.decode_seconds += self._clock() - t0
+        self._deliver(budget, toks, counts, failed)
+        self._lane_land(feeds)
+        self._host_work.append(
+            max(0.0, self._clock() - t_step0 - self._step_sync_wait))
+
+    # ---- the overlap pipeline ---------------------------------------------
+
+    def _step_overlap(self) -> None:
+        """One pipelined round: expire, admit, issue round N + 1, then read
+        back and deliver round N. With no slot occupied the round in
+        flight drains and the pipeline empties (``busy`` covers it)."""
+        t_step0 = self._clock()
+        self._step_sync_wait = 0.0
+        self._expire_deadlines()
+        self._admit()
+        t0 = self._clock()
+        if not any(s is not None for s in self._slots):
+            self._sync_inflight()
+            self.decode_seconds += self._clock() - t0
+            return
+        rec = self._issue_round(self._budgets())
+        self._sync_inflight()
+        self._inflight = rec
+        self.decode_seconds += self._clock() - t0
+        self._host_work.append(
+            max(0.0, self._clock() - t_step0 - self._step_sync_wait))
+
+    def _issue_round(self, budget):
+        """Build and issue one decode or verify round without waiting for
+        the card: the input tokens are the device row (``_dev_tok``), the
+        keys the slots' base keys, every host operand goes up through
+        pinned buffers, and the round's results are copied back into
+        pinned buffers behind an event. Returns the in-flight record for
+        ``_sync_inflight``. A fault at issue drains the pipeline and runs
+        the same round through the serial recovery (``_round_fallback``),
+        delivering it at once: then None."""
+        t_round = self._clock()
+        lead = None if self._inflight is None else self._inflight["lead"]
+        lanes, feeds = self._lane_feed()
+        spec_lens = spec_kinds = None
+        if self.engine.spec_len > 0:
+            spec_lens, spec_kinds = self._plan_spec()
+        adapter = self._adapter if self.engine.adapters is not None else None
+        if spec_lens is None:
+            kind, nwrite = "decode", self.engine.decode_block_len
+
+            def issue(b, toks_in):
+                return self.engine.decode_block(
+                    self.params, self._cache, toks_in, self._base_keys,
+                    self._eos, b, self._temp, self._top_k, self._top_p,
+                    adapter_ids=adapter, lead=lead, lanes=lanes)
+        else:
+            kind, nwrite = "verify", self.engine.spec_len + 1
+            # drafted while the card runs the round in flight, from host
+            # state a round stale; column 0 is the device row
+            drafts = self.engine._tokens(
+                self._draft(spec_lens, spec_kinds)[:, 1:])
+
+            def issue(b, toks_in):
+                return self.engine.verify(
+                    self.params, self._cache,
+                    torch.cat([toks_in[:, None], drafts], dim=1),
+                    self._base_keys, self._eos, b, self._temp,
+                    self._top_k, self._top_p, draft_len=spec_lens,
+                    adapter_ids=adapter, lead=lead, lanes=lanes)
+        t0 = self._clock()
+        self._note_issue(t0)
+        epochs = self._epoch.copy()
+        self._lane_scratch = None
+        try:
+            out = self._strip_lane(issue(budget, self._dev_tok()), feeds)
+        except Exception as e:  # noqa: BLE001 - recovered synchronously
+            if device_lost(e):
+                raise
+            _log_dispatch_failure("issue", "the active slots", e)
+            self._sync_inflight()
+            self._round_fallback(kind, budget, spec_lens, issue, feeds)
+            return None
+        self._cache, toks, counts = out[:3]
+        accepted = out[3] if kind == "verify" else None
+        self._dev_last = out[4 if kind == "verify" else 3]
+        hid = out[-1] if self.engine.return_hidden else None
+        first, lane_hid = self._lane_scratch or (None, None)
+        self._lane_scratch = None
+        self.decode_dispatches += 1
+        # the read-back, queued behind this round and nothing later
+        host = [None if t is None else t.to("cpu", non_blocking=True)
+                for t in (toks, counts, accepted, first)]
+        done = None
+        if self.engine.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return dict(kind=kind, t0=t0, budget=budget, epochs=epochs,
+                    host=host, done=done, hid=hid, lane_hid=lane_hid,
+                    spec_lens=spec_lens, feeds=feeds,
+                    # the next issue's ensure reach: this round may advance
+                    # each slot by up to lead rows before the stale host
+                    # lengths catch up at its sync
+                    lead=np.minimum(np.maximum(budget, 0), nwrite))
+
+    def _round_fallback(self, kind, budget, spec_lens, issue,
+                        feeds) -> None:
+        """A fault at issue: with the pipeline drained (the host state is
+        current), run the round's built inputs through ``_guarded_round``
+        (the serial retries and isolation) and deliver it at once. The
+        budget rows of seats the drain freed are masked. ``issue`` carries
+        the round's lane chunk, so a re-dispatch runs it too and the land
+        confirms or rewinds it."""
+        occ = np.array([s is not None for s in self._slots])
+        budget = np.where(occ, budget, 0).astype(budget.dtype)
+        self._lane_scratch = None
+
+        def dispatch(b):
+            t0 = self._clock()
+            self._note_issue(t0)
+            out = self._strip_lane(issue(b, self._dev_tok()), feeds)
+            self._cache, toks, counts = out[:3]
+            accepted = out[3] if kind == "verify" else None
+            self._dev_last = out[4 if kind == "verify" else 3]
+            hid = out[-1] if self.engine.return_hidden else None
+            self.decode_dispatches += 1
+            t_sync = self._clock()
+            outs = (toks.cpu().numpy(), counts.cpu().numpy(),
+                    None if accepted is None else accepted.cpu().numpy())
+            # the deferred advance lands per successful dispatch, so the
+            # isolation's re-dispatches compose as the serial ones do
+            self.engine.apply_advance(outs[1])
+            self._merge_hidden(hid, outs[1])
+            t1 = self._clock()
+            self._note_sync_end(t0, t_sync, t1)
+            self.latency.observe(kind, t1 - t0)
+            return outs
+
+        toks, counts, accepted, failed = self._guarded_round(dispatch,
+                                                             budget)
+        if kind == "verify":
+            self._spec_account(spec_lens, accepted, budget, failed)
+        self._deliver(budget, toks, counts, failed)
+        self._lane_land(feeds)
+
+    def _sync_inflight(self) -> None:
+        """Read back the round in flight (the one wait of the pipeline, on
+        its own event), drop every row whose seat epoch moved since its
+        issue (a late stop or a new occupant: exactly-once delivery),
+        advance the paged host lengths by the rows that stay, and deliver
+        as the serial tail does, the lane's chunk included."""
+        rec, self._inflight = self._inflight, None
+        if rec is None:
+            return
+        t_sync = self._clock()
+        if rec["done"] is not None:
+            rec["done"].synchronize()
+        toks, counts, accepted, first = rec["host"]
+        toks, counts = toks.numpy(), counts.numpy()
+        if accepted is not None:
+            accepted = accepted.numpy()
+        t1 = self._clock()
+        self._note_sync_end(rec["t0"], t_sync, t1)
+        live = ((rec["epochs"] == self._epoch)
+                & np.array([s is not None for s in self._slots]))
+        counts = np.where(live, counts, 0)
+        budget = np.where(live, rec["budget"], 0)
+        self.engine.apply_advance(counts)
+        self._merge_hidden(rec["hid"], counts)
+        self.latency.observe(rec["kind"], t1 - rec["t0"])
+        if rec["kind"] == "verify":
+            self._spec_account(rec["spec_lens"], accepted, budget, ())
+        self._deliver(budget, toks, counts, ())
+        if rec["feeds"]:
+            self._lane_scratch = (first, rec["lane_hid"])
+            self._lane_land(rec["feeds"])

@@ -57,6 +57,21 @@ whatever rounds made it, and the JAX package's token for token. With
 temperature, top_k, top_p)`` and returns the sampled token id in place of
 the logits.
 
+The overlap pipeline and the mixed prefill lane (``overlap``,
+``mixed_dispatch``; both need the slot schedule, to which "auto" then
+resolves): ``decode_block`` and ``verify`` take ``tokens`` as a tensor on
+the device (the previous round's ``next_tok`` row, read without a host
+sync) and ``lead`` (the rows the round in flight may still add to each
+slot, which the paged ensure covers); with ``defer_advance`` set they
+leave the paged host lengths to the caller's ``apply_advance`` once the
+counts are read. A mixed engine's ``decode_block`` and ``verify`` take
+``lanes`` (one prefill chunk for one slot, run after the decode steps or
+the verify pass on the cache they just updated, inside the same call:
+``_prefill_chunk``, the serial chunk's own computation) and append the
+lane's outputs. On the card every host operand goes up through a fresh
+pinned buffer by a non-blocking copy, so issuing a dispatch never waits
+for the rounds in flight.
+
 Dispatches are atomic for a retry: ``decode_step``, ``decode_block`` and
 ``verify`` restore what they advance (the cache lengths, the paged host
 lengths, the generator's state) when they raise, so a second attempt
@@ -116,6 +131,10 @@ class InferenceEngine:
     pages (``kv_layout``, ``kv_page_len``, ``kv_num_pages``,
     ``prefix_cache``, ``kv_page_policy``) come from ``cfg.inference``
     alone, ``sample_on_device`` and ``key_schedule`` from it unless given.
+    ``overlap`` and ``mixed_dispatch`` (``inference.overlap``,
+    ``inference.mixed_dispatch`` unless given) set ``self.overlap`` and
+    ``self.mixed``: the batcher's pipeline switch, and whether
+    ``decode_block`` and ``verify`` carry the prefill lane.
     ``device=None`` is the CUDA card (and raises without one); pass
     ``device="cpu"`` for the plain PyTorch path on the CPU. ``adapters``
     (a ``tenancy.AdapterPack`` built for this model) makes it a
@@ -134,7 +153,9 @@ class InferenceEngine:
                  drafter: str | None = None,
                  return_hidden: bool | None = None,
                  sample_on_device: bool | None = None,
-                 key_schedule: str | None = None, hooks=None):
+                 key_schedule: str | None = None,
+                 overlap: bool | None = None,
+                 mixed_dispatch: bool | None = None, hooks=None):
         self.cfg = Config.from_dict(cfg.to_dict())  # own copy: overrides land here
         self.cfg.check_servable()
         self.device = resolve_device(device)
@@ -191,15 +212,36 @@ class InferenceEngine:
         if sample_on_device is not None:
             inf.sample_on_device = bool(sample_on_device)
         self.sample_on_device = inf.sample_on_device
+        if overlap is not None:
+            inf.overlap = bool(overlap)
+        if mixed_dispatch is not None:
+            inf.mixed_dispatch = bool(mixed_dispatch)
         if key_schedule is not None:
             inf.key_schedule = key_schedule
+        self.overlap = bool(inf.overlap)
+        self.mixed = bool(inf.mixed_dispatch)
         ks = inf.key_schedule
         if ks not in ("auto", "round", "slot"):
             raise ValueError(
                 f"unknown key_schedule {ks!r} (auto|round|slot)")
-        # as the JAX engine resolves it: "auto" is "slot" under overlap or
-        # mixed dispatch, which the port refuses at load
-        self.key_schedule = "round" if ks == "auto" else ks
+        if ks == "auto":
+            ks = "slot" if (self.overlap or self.mixed) else "round"
+        elif ks == "round" and self.overlap:
+            raise ValueError(
+                "overlap requires the per-slot key schedule — round-keyed "
+                "sampling ties streams to round boundaries; use "
+                "key_schedule='slot' (or 'auto')")
+        elif ks == "round" and self.mixed:
+            raise ValueError(
+                "mixed_dispatch requires the per-slot key schedule — "
+                "round-keyed sampling ties streams to round boundaries, "
+                "which fusing the prefill lane changes; use "
+                "key_schedule='slot' (or 'auto')")
+        self.key_schedule = ks
+        # the overlap pipeline's sync stage advances the paged host
+        # lengths (apply_advance) once it has read a round's counts; the
+        # batcher sets this when it runs the pipeline
+        self.defer_advance = False
         self.hooks = hooks
         self._dt = torch_dtype(m.dtype)
         if cache_dtype is None:
@@ -376,24 +418,55 @@ class InferenceEngine:
         round schedule, a folded threefry key [2] on the slot schedule),
         as the batcher draws it from returned logits."""
         key, temperature, top_k, top_p = sample
-        dev = logits.device
-        t = torch.tensor([temperature], dtype=torch.float32, device=dev)
-        k = torch.tensor([top_k], dtype=torch.int32, device=dev)
-        p = torch.tensor([top_p], dtype=torch.float32, device=dev)
+        t = self._upload([temperature], np.float32)
+        k = self._upload([top_k], np.int32)
+        p = self._upload([top_p], np.float32)
         if isinstance(key, torch.Generator):
             return sampling.sample(logits, key, t, k, p)
-        return sampling.sample_rowkeys(logits, prng.as_key(key, dev)[None],
-                                       t, k, p)
+        return sampling.sample_rowkeys(
+            logits, self._key_rows(key)[None], t, k, p,
+            greedy_only=float(temperature) <= 0)
+
+    # ---- host to device, without waiting for the card ---------------------
+
+    def _host_copy(self, dst: torch.Tensor, arr) -> torch.Tensor:
+        """Copy host array ``arr`` into ``dst`` on the engine's device. On
+        the card the bytes go through a fresh pinned buffer by a
+        non-blocking copy, ordered on the stream behind every round
+        already issued, so the host never waits for one; PyTorch's pinned
+        allocator hands that buffer out again only once the copy that
+        reads it has run, so the host may change ``arr`` at once."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if dst.device.type == "cuda":
+            src = src.pin_memory()
+        return dst.copy_(src, non_blocking=True)
+
+    def _upload(self, arr, dtype) -> torch.Tensor:
+        """A host array as a new tensor on the engine's device (a copy,
+        never a view of the host memory), without a sync."""
+        arr = np.asarray(arr, dtype)
+        out = torch.empty(arr.shape, device=self.device,
+                          dtype=torch.from_numpy(np.empty(0, dtype)).dtype)
+        return self._host_copy(out, arr)
+
+    def _key_rows(self, keys) -> torch.Tensor:
+        """Keys (uint32 words ``[..., 2]``: numpy, a list or a tensor) as
+        the int64 tensor ``prng`` computes on, on the engine's device."""
+        if isinstance(keys, torch.Tensor):
+            if keys.device.type != "cpu" or self.device.type == "cpu":
+                return keys.to(self.device, torch.int64)
+            keys = keys.numpy()
+        return self._upload(np.asarray(keys, np.uint32).astype(np.int64),
+                            np.int64)
 
     # ---- paged-layout host plumbing ---------------------------------------
 
     def _sync_tables(self, cache: dict) -> dict:
         """Copy the host allocator's block tables to the device (and, under
         ``hot_bf16``, the per-page read flags from the live refcounts)."""
-        cache["block_tables"].copy_(torch.from_numpy(self.paged.tables))
+        self._host_copy(cache["block_tables"], self.paged.tables)
         if self.page_policy:
-            cache["page_quant"].copy_(
-                torch.from_numpy(self.paged.quant_flags()))
+            self._host_copy(cache["page_quant"], self.paged.quant_flags())
         return cache
 
     def _ensure(self, cache: dict, slot: int, from_pos: int,
@@ -406,22 +479,48 @@ class InferenceEngine:
             cache = paged_kv.copy_page(cache, src, dst)
         return cache
 
-    def _pre_write(self, cache: dict, nwrite: int, budget=None) -> dict:
+    def _pre_write(self, cache: dict, nwrite: int, budget=None,
+                   lead=None) -> dict:
         """Before a decode block: every parked slot (length > 0) writes up
         to ``nwrite`` rows from its length, inactive slots' hidden rows
         included, and none may land in a shared page. ``budget`` caps a
         slot's reach at ``budget[s] + 1`` rows (what it can emit, and the
         one row a stopped slot keeps rewriting), which is what admission
-        priced. Ensures them all, then syncs the tables."""
+        priced. ``lead`` [slots] (the overlap pipeline) stretches each
+        slot's reach by the rows the round in flight may still add: the
+        host lengths are a round stale at issue, so the device's lie in
+        ``[host_len, host_len + lead]``; rows already the slot's own stay
+        so, and cost nothing. Ensures them all, then syncs the tables."""
         p = self.paged
         window = p.max_pages * p.page_len
         if budget is not None:
             budget = np.asarray(budget)
+        if lead is not None:
+            lead = np.asarray(lead)
         for s in np.flatnonzero(p.host_len > 0):
             n = nwrite if budget is None else min(nwrite, int(budget[s]) + 1)
+            if lead is not None:
+                n += int(lead[s])
             cache = self._ensure(cache, int(s), int(p.host_len[s]),
                                  min(int(p.host_len[s]) + n, window))
         return self._sync_tables(cache)
+
+    def apply_advance(self, counts) -> None:
+        """The paged host lengths' advance by a round's read-back (and
+        late-finish-masked) counts, where ``defer_advance`` left it to the
+        caller. Nothing on the contiguous layout, whose only lengths are
+        the device's."""
+        if self.paged is not None:
+            self.paged.advance(np.asarray(counts, np.int64))
+
+    def seat_slot(self, cache: dict, slot: int, length: int) -> dict:
+        """Park a prefix the slot already holds by reference (a radix hit
+        taken by ``paged.match_prefix``) as its length, with no dispatch:
+        the host and device lengths and the synced tables."""
+        if self.paged is None:
+            raise ValueError("seat_slot needs kv_layout='paged'")
+        self.paged.set_len(slot, length)
+        return paged_kv.set_length(self._sync_tables(cache), slot, length)
 
     def prefill_bucket(self, prompt_len: int) -> int:
         """Power-of-two padding bucket for a prompt."""
@@ -464,7 +563,7 @@ class InferenceEngine:
                     f"{self.adapters.slots}); got {ids.tolist()}")
         return llama.bind_adapters(
             params, self.adapters.device_leaves(self.device),
-            self._tokens(ids))
+            self._upload(ids, np.int32))
 
     def _bind_one(self, params, adapter_id):
         """A one-row dispatch's binding (the prefills)."""
@@ -476,7 +575,11 @@ class InferenceEngine:
     # ---- model programs ---------------------------------------------------
 
     def _tokens(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids, np.int32)).to(self.device)
+        """Token ids as int32 on the device: a host array goes up without
+        a sync, a tensor already there stays there."""
+        if isinstance(ids, torch.Tensor):
+            return ids.to(self.device, torch.int32)
+        return self._upload(ids, np.int32)
 
     def _pack_kv(self, K: torch.Tensor, V: torch.Tensor) -> dict:
         """Prefill K/V blocks in the cache's storage form: quantized
@@ -576,7 +679,14 @@ class InferenceEngine:
                                     slots=slice(slot, slot + 1))
         idx = min(max(valid - 1, 0), C - 1)
         last = llama.head_logits(params, h[:, idx: idx + 1], self.cfg)
-        cache["lengths"][slot] = start + valid
+        # a new lengths tensor, never a write into the old one: the
+        # dispatches' restore (_restoring) keeps the old one as its
+        # snapshot. fill_, not an index assignment: a Python value
+        # assigned into a CUDA tensor goes up by a copy that waits for the
+        # card
+        lengths = cache["lengths"].clone()
+        lengths[slot: slot + 1].fill_(start + valid)
+        cache["lengths"] = lengths
         return last[:, 0].float(), h[:, idx]
 
     @torch.no_grad()
@@ -659,8 +769,7 @@ class InferenceEngine:
             raise ValueError("empty prompt")
         cached = self.paged.match_prefix(slot, ids, salt=cache_salt)
         if cached > 0:
-            cache = paged_kv.set_length(self._sync_tables(cache), slot,
-                                        cached)
+            cache = self.seat_slot(cache, slot, cached)
             out = self.prefill_chunked(params, cache, ids, slot,
                                        start=cached, adapter_id=adapter_id,
                                        sample=sample)
@@ -707,18 +816,17 @@ class InferenceEngine:
     def _sampling_args(self, temperature, top_k, top_p) -> tuple:
         """The per-slot sampling parameters on the device, and whether any
         row samples (read from the host arrays: no device sync)."""
-        dev = self.device
         stochastic = bool((np.asarray(temperature) > 0).any())
-        temp = torch.as_tensor(np.asarray(temperature, np.float32)).to(dev)
-        return (stochastic, temp, self._tokens(top_k),
-                torch.as_tensor(np.asarray(top_p, np.float32)).to(dev))
+        return (stochastic, self._upload(temperature, np.float32),
+                self._upload(top_k, np.int32),
+                self._upload(top_p, np.float32))
 
     def _keys(self, keys, kind: str):
         """A dispatch's key operand: the round schedule's
         ``torch.Generator``, or the slot schedule's per-slot base keys
         [slots, 2] on the device."""
         if self.key_schedule == "slot":
-            base = prng.as_key(keys, self.device)
+            base = self._key_rows(keys)
             if tuple(base.shape) != (self.slots, 2):
                 raise ValueError(
                     f"key_schedule='slot' takes per-slot base keys "
@@ -769,13 +877,91 @@ class InferenceEngine:
         out = (cache, nxt, None if self.sample_on_device else logits)
         return out + (h,) if self.return_hidden else out
 
+    # ---- the mixed prefill lane -------------------------------------------
+
+    def _lane_args(self, lanes):
+        """The one active lane of ``lanes`` (None: every lane idle), checked:
+        a list of one entry per dp shard (the port serves one), each None
+        or a dict with ``slot``, ``tokens`` (the chunk's 1 to
+        ``prefill_chunk`` real token ids) and ``start`` (its first write
+        row, by ``prefill_chunked``'s convention: slid back near the
+        window's end on the contiguous layout, absolute on the paged one);
+        on a ``sample_on_device`` engine ``key`` (the fold at the prompt's
+        last row), ``temperature``, ``top_k`` and ``top_p``, and
+        ``adapter`` on an engine with a pack."""
+        if lanes is None:
+            return None
+        if not self.mixed:
+            raise ValueError(
+                "lanes requires a mixed_dispatch engine (construct with "
+                "mixed_dispatch=True or set inference.mixed_dispatch)")
+        if len(lanes) != 1:
+            raise ValueError(
+                f"lanes carries {len(lanes)} entries; this engine "
+                f"serves one lane per dp shard (1)")
+        ln = lanes[0]
+        if ln is None:
+            return None
+        g = int(ln["slot"])
+        if not 0 <= g < self.slots:
+            raise ValueError(
+                f"lane slot {g} does not live on dp shard 0 (slots [0, "
+                f"{self.slots}))")
+        chunk = np.asarray(ln["tokens"], np.int32).reshape(-1)
+        C = self.prefill_chunk
+        if not 0 < chunk.size <= C:
+            raise ValueError(
+                f"lane chunk must carry 1..prefill_chunk ({C}) real "
+                f"tokens; got {chunk.size}")
+        padded = np.zeros((1, C), np.int32)
+        padded[0, : chunk.size] = chunk
+        sample = None
+        if self.sample_on_device:
+            sample = (ln["key"], float(ln.get("temperature", 1.0)),
+                      int(ln.get("top_k", 0)), float(ln.get("top_p", 1.0)))
+        adapter = (int(ln.get("adapter") or 0) if self.adapters is not None
+                   else None)
+        return dict(slot=g, tokens=padded, valid=int(chunk.size),
+                    start=int(ln["start"]), sample=sample, adapter=adapter)
+
+    def _lane_ensure(self, cache: dict, lane) -> dict:
+        """Paged: make the lane chunk's real rows its slot's own before the
+        dispatch (the caller's ``_pre_write`` then syncs the tables); its
+        pad rows reach unallocated entries and the NULL page, as a serial
+        chunk's do."""
+        if self.paged is None or lane is None:
+            return cache
+        s0 = lane["start"]
+        return self._ensure(cache, lane["slot"], s0, s0 + lane["valid"])
+
+    def _lane_run(self, params, cache: dict, lane) -> tuple:
+        """The lane's chunk on the cache the same call's decode steps or
+        verify pass just updated: ``_prefill_chunk`` for its slot, under
+        its own adapter row, then the sampled token on a
+        ``sample_on_device`` engine. Returns the lane outputs: (the last
+        valid token's logits [1, V] fp32, or its sampled token [1] int32
+        [, its hidden state before the final norm [1, H]]). An idle lane
+        launches nothing, and each of its outputs is None."""
+        n = 2 if self.return_hidden else 1
+        if lane is None:
+            return (None,) * n
+        params = self._bind_one(params, lane["adapter"])
+        logits, hidden = self._prefill_chunk(
+            params, cache, self._tokens(lane["tokens"]), lane["slot"],
+            lane["start"], lane["valid"])
+        out = (logits if lane["sample"] is None
+               else self._epilogue(logits, lane["sample"]))
+        return (out, hidden)[:n]
+
     @torch.no_grad()
     def decode_block(self, params, cache, tokens, keys, eos_id, budget,
-                     temperature, top_k, top_p, adapter_ids=None) -> tuple:
+                     temperature, top_k, top_p, adapter_ids=None,
+                     lead=None, lanes=None) -> tuple:
         """``decode_block_len`` tokens for every slot. ``tokens`` [slots]
-        (each slot's current last token), ``eos_id`` [slots] (-1 = none),
-        ``budget`` [slots] remaining tokens (0 for free slots) and the
-        sampling parameters are host arrays. ``keys`` draws the sampled
+        (each slot's current last token: a host array, or a tensor on the
+        device, which is used where it lies), ``eos_id`` [slots] (-1 =
+        none), ``budget`` [slots] remaining tokens (0 for free slots) and
+        the sampling parameters are host arrays. ``keys`` draws the sampled
         rows: the round schedule's ``torch.Generator``, or on a
         ``key_schedule='slot'`` engine the per-slot base keys [slots, 2],
         the row after position ``p`` of slot ``b`` drawn with
@@ -787,22 +973,29 @@ class InferenceEngine:
         row b are what slot b produced; a slot-keyed engine appends
         next_tok [slots] (each slot's last token after the block, its
         input token where it made no step). Paged: every page the block
-        can write is made the writer's own first, and the host lengths
-        follow the counts after. ``adapter_ids`` [slots] are the slots'
-        adapter slots on an engine with a pack (None: all null). A
-        ``return_hidden`` engine appends hidden [slots, H]: each slot's
-        state before the final norm at its last active step (zeros for a
-        slot that made no step), what produced its last emitted token."""
+        can write is made the writer's own first (``lead``: see
+        ``_pre_write``), and the host lengths follow the counts after,
+        unless ``defer_advance`` leaves that to ``apply_advance``.
+        ``adapter_ids`` [slots] are the slots' adapter slots on an engine
+        with a pack (None: all null). A ``return_hidden`` engine appends
+        hidden [slots, H]: each slot's state before the final norm at its
+        last active step (zeros for a slot that made no step), what
+        produced its last emitted token. A ``mixed_dispatch`` engine runs
+        ``lanes``' chunk after the steps (``_lane_args``) and appends the
+        lane outputs (``_lane_run``: None where the lane is idle)."""
+        lane = self._lane_args(lanes)
         keys = self._keys(keys, "decode_block")
         slot_keys = self.key_schedule == "slot"
         self._hook("decode", budget)
         dev = self.device
+        base = params
         if self.adapters is not None or adapter_ids is not None:
             params = self.bind_adapter_ids(params, adapter_ids, self.slots)
         poison = self._poison("decode")
         if self.paged is not None:
+            cache = self._lane_ensure(cache, lane)
             cache = self._pre_write(cache, self.decode_block_len,
-                                    budget=budget)
+                                    budget=budget, lead=lead)
         tok = self._tokens(tokens)
         eos = self._tokens(eos_id)
         budget = self._tokens(budget)
@@ -839,24 +1032,29 @@ class InferenceEngine:
                 tok = torch.where(active, sampled, tok)
             counts = torch.stack(actives, dim=1).sum(dim=1,
                                                      dtype=torch.int32)
-            if self.paged is not None:
+            lane_out = (self._lane_run(base, cache, lane) if self.mixed
+                        else ())
+            if self.paged is not None and not self.defer_advance:
                 self.paged.advance(counts.cpu().numpy())
         out = (cache, torch.stack(emitted, dim=1), counts)
         if slot_keys:
             out += (tok,)
-        return out + (hid,) if hid is not None else out
+        if hid is not None:
+            out += (hid,)
+        return out + lane_out
 
     @torch.no_grad()
     def verify(self, params, cache, tokens, keys, eos_id, budget,
                temperature, top_k, top_p, draft_len=None,
-               adapter_ids=None) -> tuple:
+               adapter_ids=None, lead=None, lanes=None) -> tuple:
         """One draft-verify dispatch for every slot (``spec_len > 0``
         engines). ``tokens`` [slots, spec_len + 1]: column 0 each slot's
-        current last token, then its drafts. ``draft_len`` [slots]
+        current last token, then its drafts (a host array, or on a
+        slot-keyed engine a tensor on the device). ``draft_len`` [slots]
         (None: ``spec_len`` everywhere) makes the verify ragged: slot
         ``b`` drafted ``draft_len[b]`` real tokens, and its pad columns are
-        neither accepted nor written. The other arguments are
-        ``decode_block``'s.
+        neither accepted nor written. The other arguments, ``lead``,
+        ``lanes`` and ``defer_advance`` are ``decode_block``'s.
 
         One model pass runs the S = spec_len + 1 tokens at rows
         ``lengths + 0..S-1`` of each slot, writing their K/V (the real
@@ -879,15 +1077,18 @@ class InferenceEngine:
         slot-keyed engine appends next_tok [slots] (the last emitted
         token, the fed last token where a row emitted none); a
         ``return_hidden`` engine appends hidden [slots, H], each slot's
-        state before the final norm at row ``counts - 1``."""
+        state before the final norm at row ``counts - 1``; a
+        ``mixed_dispatch`` engine appends the lane outputs."""
         if self.spec_len < 1:
             raise ValueError(
                 "speculative decoding is off for this engine (spec_len == "
                 "0); construct it with spec_len > 0 or set "
                 "inference.spec_len")
-        tokens = np.asarray(tokens, np.int32)
+        lane = self._lane_args(lanes)
+        if not isinstance(tokens, torch.Tensor):
+            tokens = np.asarray(tokens, np.int32)
         S = self.spec_len + 1
-        if tokens.shape != (self.slots, S):
+        if tuple(tokens.shape) != (self.slots, S):
             raise ValueError(
                 f"verify tokens must be [slots, spec_len + 1] = "
                 f"[{self.slots}, {S}]; got {tuple(tokens.shape)}")
@@ -907,11 +1108,13 @@ class InferenceEngine:
         keys = self._keys(keys, "verify")
         slot_keys = self.key_schedule == "slot"
         self._hook("verify", budget)
+        base = params
         if self.adapters is not None or adapter_ids is not None:
             params = self.bind_adapter_ids(params, adapter_ids, self.slots)
         poison = self._poison("verify")
         if self.paged is not None:
-            cache = self._pre_write(cache, S)
+            cache = self._lane_ensure(cache, lane)
+            cache = self._pre_write(cache, S, lead=lead)
         dev = self.device
         tok = self._tokens(tokens)
         valid_t = self._tokens(valid)
@@ -949,16 +1152,18 @@ class InferenceEngine:
             # drafts
             accepted = torch.minimum(raw - 1, counts)
             cache["lengths"] = torch.where(active, pos0 + counts, pos0)
-            if self.paged is not None:
+            lane_out = (self._lane_run(base, cache, lane) if self.mixed
+                        else ())
+            if self.paged is not None and not self.defer_advance:
                 self.paged.advance(counts.cpu().numpy())
         out = (cache, emitted, counts, accepted)
         idx = (counts.long() - 1).clamp(0, S - 1)
         if slot_keys:
             last = emitted.gather(1, idx[:, None])[:, 0]
             out += (torch.where(counts > 0, last, tok[:, 0]),)
-        if not self.return_hidden:
-            return out
-        return out + (h[torch.arange(self.slots, device=dev), idx],)
+        if self.return_hidden:
+            out += (h[torch.arange(self.slots, device=dev), idx],)
+        return out + lane_out
 
     def make_draft_program(self, with_head: bool = False):
         """The learned drafter's pass (EAGLE-style, Li et al. 2024): a

@@ -233,13 +233,13 @@ def insert_prefill(cache: dict, kv: dict, slot: int, length: int) -> dict:
     for name in cache:
         if name != "lengths":
             cache[name][:, slot, :s] = kv[name][:, 0].to(cache[name].dtype)
-    cache["lengths"][slot] = length
+    cache["lengths"][slot: slot + 1].fill_(length)
     return cache
 
 
 def release(cache: dict, slot: int) -> dict:
     """Free a slot: zero its length so no stale key is visible again."""
-    cache["lengths"][slot] = 0
+    cache["lengths"][slot: slot + 1].fill_(0)
     return cache
 
 

@@ -213,7 +213,7 @@ def insert_prefill(cache: dict, kv: dict, slot: int, length: int) -> dict:
     for name in cache:
         if name not in META_LEAVES:
             cache[name][:, pid, off] = kv[name][:, 0].to(cache[name].dtype)
-    cache["lengths"][slot] = length
+    cache["lengths"][slot: slot + 1].fill_(length)
     return cache
 
 
@@ -228,7 +228,7 @@ def copy_page(cache: dict, src: int, dst: int) -> dict:
 
 def set_length(cache: dict, slot: int, length: int) -> dict:
     """Set one slot's length (a shared prefix admitted with no prefill)."""
-    cache["lengths"][slot] = length
+    cache["lengths"][slot: slot + 1].fill_(length)
     return cache
 
 

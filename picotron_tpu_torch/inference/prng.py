@@ -99,8 +99,10 @@ def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
     float32."""
     mant = (bits(keys, n) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    # float32 scalars on the host: a CUDA op takes a 0-d CPU tensor as a
+    # scalar operand, with no copy to the device (which would wait for it)
+    lo = torch.tensor(minval, dtype=torch.float32)
+    hi = torch.tensor(maxval, dtype=torch.float32)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

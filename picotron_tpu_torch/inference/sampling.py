@@ -61,7 +61,7 @@ def apply_top_p(logits: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     probs = torch.softmax(sorted_desc.float(), dim=-1)
     cum = probs.cumsum(dim=-1)
     keep_sorted = (cum - probs) < p[:, None]
-    keep_sorted[:, 0] = True
+    keep_sorted[:, 0].fill_(True)
     cutoff = torch.where(keep_sorted, sorted_desc,
                          float("inf")).amin(dim=-1)
     keep = (p >= 1.0)[:, None] | (logits >= cutoff[:, None])
@@ -81,7 +81,7 @@ def filter_top_k_top_p(scaled: torch.Tensor, top_k: torch.Tensor,
     probs = torch.softmax(torch.where(keep, sorted_desc, NEG_INF), dim=-1)
     cum = probs.cumsum(dim=-1)
     keep &= (top_p[:, None] >= 1.0) | ((cum - probs) < top_p[:, None])
-    keep[:, 0] = True
+    keep[:, 0].fill_(True)  # fill_: no host value copied up
     cutoff = torch.where(keep, sorted_desc, float("inf")).amin(dim=-1)
     return torch.where(scaled >= cutoff[:, None], scaled, NEG_INF)
 
@@ -142,6 +142,12 @@ def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
         sanitize_logits(logits).float() / t, top_k, top_p), dim=-1)
 
 
+def _per_row(x: torch.Tensor, S: int) -> torch.Tensor:
+    """Each slot's parameter for each of its S rows: [B] -> [B * S]
+    (``repeat_interleave`` without its output-size read on the card)."""
+    return x[:, None].expand(x.shape[0], S).reshape(-1)
+
+
 def _leading_true(ok: torch.Tensor) -> torch.Tensor:
     """Length of each row's leading all-True run: [B, G] bool -> [B]
     int32."""
@@ -193,9 +199,8 @@ def speculative_accept(logits: torch.Tensor, draft: torch.Tensor,
         acc, last = acc_greedy, last_greedy
     else:
         probs = filtered_probs(
-            logits.reshape(B * S, V), temperature.repeat_interleave(S),
-            top_k.repeat_interleave(S),
-            top_p.repeat_interleave(S)).reshape(B, S, V)
+            logits.reshape(B * S, V), _per_row(temperature, S),
+            _per_row(top_k, S), _per_row(top_p, S)).reshape(B, S, V)
         p_draft = probs[:, :G].gather(2, draft.long()[..., None])[..., 0]
         u = torch.rand((B, G), generator=generator, device=dev)
         ok = u < p_draft
@@ -256,9 +261,9 @@ def speculative_match(logits: torch.Tensor, draft: torch.Tensor,
         prng.as_key(base_keys, logits.device)[:, None, :],
         positions).reshape(B * S, 2)
     s = sample_rowkeys(
-        logits.reshape(B * S, V), keys,
-        temperature.repeat_interleave(S), top_k.repeat_interleave(S),
-        top_p.repeat_interleave(S), greedy_only=greedy_only).reshape(B, S)
+        logits.reshape(B * S, V), keys, _per_row(temperature, S),
+        _per_row(top_k, S), _per_row(top_p, S),
+        greedy_only=greedy_only).reshape(B, S)
     ok = draft == s[:, :G]
     if draft_len is not None:
         ok &= (torch.arange(G, device=logits.device)[None, :]

@@ -79,13 +79,13 @@ TINY_MODEL = {"num_hidden_layers": 1, "num_attention_heads": 2,
     ("inference", "overlap", True, "load"),
 ])
 def test_unhonoured_values_are_refused(section, name, value, where):
-    """A value the port does not behave as is refused: ``overlap`` at load,
-    and the dense fallback where serving starts (the JAX package's own
-    to_dict writes it at its default, true, so the load takes it and the
-    engine refuses it: ``Config.check_servable``). The dispatch retries and
-    the per-slot key schedule, once refused here, are served now: they
-    load, pass ``check_servable``, and the engine and batcher built from
-    them act on them."""
+    """A value the port does not behave as is refused: the dense fallback
+    where serving starts (the JAX package's own to_dict writes it at its
+    default, true, so the load takes it and the engine refuses it:
+    ``Config.check_servable``). The dispatch retries, the per-slot key
+    schedule and the overlap pipeline, once refused here, are served now:
+    they load, pass ``check_servable``, and the engine and batcher built
+    from them act on them."""
     refused = rf"{section}\.{name}=.* is not in the PyTorch port yet"
     raw = {"model": TINY_MODEL, section: {name: value}}
     if (section, name) in port_config.REFUSED_AT_LOAD:
@@ -105,6 +105,22 @@ def test_unhonoured_values_are_refused(section, name, value, where):
         engine = InferenceEngine(cfg, "cpu", slots=1)
         if name == "key_schedule":
             assert engine.key_schedule == "slot"
+        elif name == "overlap":
+            # the pipeline, on the slot schedule "auto" resolves to: a
+            # round in flight while the next is issued, drained at the end
+            assert engine.overlap and engine.key_schedule == "slot"
+            params = llama.init_params(engine.cfg.model, seed=0,
+                                       device=engine.device)
+            b = ContinuousBatcher(engine, params)
+            assert engine.defer_advance
+            b.submit(Request("a", [1, 2, 3], max_new_tokens=9))
+            inflight = []
+            while b.busy:
+                b.step()
+                inflight.append(b._inflight is not None)
+            res = b.take_results()
+            assert len(res["a"].tokens) == 9 and any(inflight)
+            assert b.stats()["overlap"]["enabled"]
         else:
             # one injected fault at the first decode round: the second of
             # the two attempts lands it

@@ -482,32 +482,48 @@ def test_live_tokens_matches_jax(tiny):
     assert int(kv_cache.live_tokens(eng.release(cache, 1))) == 16
 
 
-@pytest.mark.parametrize("schedule", [None, "auto", "round", "slot", "bogus"])
-def test_key_schedule_resolution_matches_jax(tiny, schedule):
+@pytest.mark.parametrize("schedule,feature", [
+    *[pytest.param(s, None, id=str(s))
+      for s in (None, "auto", "round", "slot", "bogus")],
+    *[pytest.param(s, f, id=f"{f}-{s}")
+      for f in ("overlap", "mixed_dispatch")
+      for s in (None, "auto", "round", "slot")]])
+def test_key_schedule_resolution_matches_jax(tiny, schedule, feature):
+    """The schedule an engine resolves, and its refusals, as the JAX
+    engine's: "auto" is "slot" under overlap or mixed dispatch, and either
+    refuses "round", from the engine's keywords and from the config (the
+    config's own messages)."""
     jcfg = tiny[0]
     cfg = Config.from_dict({"model": MODEL})
+    kw = {feature: True} if feature else {}
+    inf = {**kw} if schedule is None else {**kw, "key_schedule": schedule}
     try:
         want = JaxEngine(jcfg, slots=2, max_seq_len=MAX_LEN,
-                         key_schedule=schedule).key_schedule
+                         key_schedule=schedule, **kw).key_schedule
     except ValueError as theirs:
         with pytest.raises(ValueError) as ours:
             InferenceEngine(cfg, "cpu", slots=2, max_seq_len=MAX_LEN,
-                            key_schedule=schedule)
+                            key_schedule=schedule, **kw)
         assert str(ours.value) == str(theirs)
         # and through the config file, with the config's message
         with pytest.raises(ValueError) as theirs_cfg:
-            JaxConfig.from_dict({"inference": {"key_schedule": schedule}})
+            JaxConfig.from_dict({"inference": inf})
         with pytest.raises(ValueError) as ours_cfg:
-            Config.from_dict({"inference": {"key_schedule": schedule}})
+            Config.from_dict({"inference": inf})
         assert str(ours_cfg.value) == str(theirs_cfg.value)
         return
-    got = InferenceEngine(cfg, "cpu", slots=2, max_seq_len=MAX_LEN,
-                          key_schedule=schedule).key_schedule
-    assert got == want
-    if schedule is not None:
-        raw = {"model": MODEL, "inference": {"key_schedule": schedule}}
-        assert InferenceEngine(Config.from_dict(raw), "cpu", slots=2,
-                               max_seq_len=MAX_LEN).key_schedule == want
+    eng = InferenceEngine(cfg, "cpu", slots=2, max_seq_len=MAX_LEN,
+                          key_schedule=schedule, **kw)
+    assert eng.key_schedule == want
+    assert (eng.overlap, eng.mixed) == (feature == "overlap",
+                                        feature == "mixed_dispatch")
+    if inf:
+        raw = {"model": MODEL, "inference": inf}
+        eng = InferenceEngine(Config.from_dict(raw), "cpu", slots=2,
+                              max_seq_len=MAX_LEN)
+        assert eng.key_schedule == want
+        assert (eng.overlap, eng.mixed) == (feature == "overlap",
+                                            feature == "mixed_dispatch")
 
 
 @pytest.mark.parametrize("schedule", ["round", "slot"])

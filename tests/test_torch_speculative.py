@@ -961,8 +961,8 @@ def test_spec_config_validation_matches_jax(raw):
 
 def test_spec_config_loads_and_round_trips():
     """spec_len 4 loads with every spec field read; the nested controller
-    section round-trips; dp sharding, overlap and mixed dispatch are still
-    refused."""
+    section round-trips; dp sharding and the disaggregation roles are
+    still refused."""
     cfg = Config.from_dict({"inference": {
         "spec_len": 4, "drafter": "learned", "spec_ngram": 2,
         "spec_history_window": 16,
@@ -976,8 +976,8 @@ def test_spec_config_loads_and_round_trips():
     for f in ("enabled", "target", "low", "window", "hysteresis", "cooloff",
               "latency_min_samples"):
         assert getattr(SpecControllerConfig(), f) == getattr(jdefaults, f)
-    for raw in ({"dp_size": 2}, {"overlap": True},
-                {"mixed_dispatch": True}):
+    for raw in ({"dp_size": 2}, {"role": "decode"},
+                {"role": "prefill"}):
         with pytest.raises(ValueError, match="not in the PyTorch port yet"):
             Config.from_dict({"inference": raw})
     eng = InferenceEngine(Config.from_dict({"model": MODEL, "inference": {
