@@ -190,15 +190,26 @@ Run from the root of a checkout. Phases, each of which must pass:
    3's greedy gate). Every run with overlap issues its rounds under
    ``torch.cuda.set_sync_debug_mode("error")``, and each run launches its
    path's kernels (A, B and C, or C's paged variant) and no other;
-13. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+13. the HTTP front end (``tools/serve.py``): phase 3's model and requests
+   POSTed to ``Server(engine, params, port=0)`` (two streamed), in turns
+   with ``ContinuousBatcher.run`` on the same engine: the same bits, the
+   decode rates both ways, TTFT through HTTP and the front end's host
+   seconds a request (``serve_http``); phase 6's tenancy config with a
+   tenant hot-added by ``POST /tenants``, served and removed
+   (``serve_http_tenants``: A, B, C-paged and H); the CLI in a
+   subprocess at full width (``--config --random-init --port 0``: start-up
+   seconds, one POST, SIGTERM with a request in flight, which is served,
+   and exit 0); ``--smoke`` and ``--smoke --overlap`` on the card;
+14. a ``{"kernels": [...]}`` line with each kernel's launches on its own
    path (and on each path: ``serve``, ``serve_paged``,
    ``serve_paged_int8``, ``serve_mixed`` (the ``hot_bf16`` page policy),
    ``serve_tenants``, ``serve_int8``, ``train``, ``checkpoint``,
    ``serve_spec``, ``serve_spec_learned``, ``serve_spec_paged``,
    ``serve_spec_oracle``, ``serve_spec_offscript``, ``serve_slot``,
    ``serve_slot_spec``, ``sample_on_device``, ``serve_chaos``,
-   ``serve_overlap``, ``serve_lane_paged``, ``serve_lane_spec``),
-   then ``{"ok": true, "device": {...}}`` as the last line.
+   ``serve_overlap``, ``serve_lane_paged``, ``serve_lane_spec``,
+   ``serve_http``, ``serve_http_tenants``), then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
 CUDA card, or outside a checkout that holds the package, it fails at once.
@@ -2890,6 +2901,445 @@ def _pipeline_phase(torch, np, card, paths, all_kernels) -> dict:
     return by_path
 
 
+# phase 13: the HTTP front end (tools/serve.py)
+HTTP_STREAMED = (2, 6)  # request indices POSTed with "stream": true
+HTTP_LONG_TOKENS = 256  # the CLI's request in flight at SIGTERM
+# the tenant phase 13 hot-adds through POST /tenants (a free pack slot)
+HTTP_TENANT = {"name": "hooli", "adapter_rank": 8, "adapter_seed": 4,
+               "priority": 1}
+HTTP_TIMEOUT_S = 300.0  # the bound on every wait of phase 13
+
+
+def _http(port: int, method: str, path: str, body=None):
+    """(status, parsed JSON or text) of one request to a local server."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        try:
+            return resp.status, json.loads(text)
+        except ValueError:
+            return resp.status, text
+    finally:
+        conn.close()
+
+
+def _http_client(port: int, spec: dict, out: dict) -> None:
+    """POST ``spec`` to /generate and fill ``out``: the send, first-row
+    and end times (host clock), the status and the result (a streamed
+    one's token rows under ``"rows"``)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        out["t_send"] = time.perf_counter()
+        conn.request("POST", "/generate", json.dumps(spec))
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        if not spec.get("stream"):
+            out["result"] = json.loads(resp.read())
+            return
+        out["rows"] = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            row = json.loads(line)
+            if row["event"] == "token":
+                out.setdefault("t_first", time.perf_counter())
+                out["rows"].append(row["token"])
+            else:
+                out["result"] = row
+    finally:
+        out["t_end"] = time.perf_counter()
+        conn.close()
+
+
+def _child_lines(proc):
+    """A queue fed with ``proc``'s output lines by a daemon thread."""
+    import queue
+    import threading
+
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return lines
+
+
+def _http_phase(torch, np, card, paths, all_kernels) -> dict:
+    """Phase 13: the HTTP front end (``tools/serve.py``) on the card.
+    Every kernel's count is set to 0 just before each counted run and
+    read just after; each must launch its path's kernels and no other.
+    Returns each path's counts.
+
+    - ``serve_http``: phase 3's model and requests (SmolLM-1.7B at full
+      width and depth, 8 slots, window 2048, ``key_schedule: "slot"``,
+      decode blocks of ``KEYS_BLOCK``) behind ``Server(engine, params,
+      port=0)``; each request POSTed on its own connection once the one
+      before it is registered with the front end (so both runs admit in
+      one order), ``HTTP_STREAMED`` of them streamed. In turns with
+      ``ContinuousBatcher.run`` on the same engine (direct, HTTP, HTTP,
+      direct): every HTTP stream must be bit for bit the direct one, a
+      stream's token rows its result, and /metrics must agree with /statz.
+      Printed: decode tokens/s both ways, TTFT p50/max through HTTP, and
+      each streamed request's front-end host seconds (send to its first
+      row, less the batcher's own TTFT).
+    - ``serve_http_tenants``: phase 6's tenancy config (paged bf16, three
+      tenants in an 8-slot rank-16 pack) behind a Server with its
+      registry; ``HTTP_TENANT`` is hot-added by ``POST /tenants`` (pack
+      slot 4), a base, an acme and a hooli request run together, then
+      ``DELETE /tenants/hooli`` and a request naming it must be a 400.
+      Gates: full budgets, A, B, C-paged and H launch and no other kernel,
+      hooli's greedy tokens within ``LOGIT_MARGIN`` of its merged tree.
+    - the CLI in a subprocess at full width: ``python -m
+      picotron_tpu_torch.tools.serve --config <phase 3's config>
+      --random-init --port 0``; its "serving" line gives the port and the
+      start-up seconds; one POST is served; a streamed request of
+      ``HTTP_LONG_TOKENS`` is in flight at SIGTERM and must be served
+      (200, "length"), and the process must exit 0 (the seconds from
+      SIGTERM to exit printed).
+    - ``--smoke`` and ``--smoke --overlap``, two subprocesses side by side
+      on the card: exit 0 and ``serve-smoke: PASS``."""
+    by_path, figures = _http_serve_runs(torch, np, paths, all_kernels)
+    figures.update(_http_cli_run())
+    smokes = {name: subprocess.Popen(
+        [sys.executable, "-m", "picotron_tpu_torch.tools.serve", "--smoke",
+         *extra], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, extra in (("smoke", []),
+                                       ("smoke_overlap", ["--overlap"]))}
+    try:
+        for name, proc in smokes.items():
+            out, _ = proc.communicate(timeout=HTTP_TIMEOUT_S)
+            if proc.returncode != 0 or "serve-smoke: PASS" not in out:
+                raise AssertionError(f"serve {name} exited "
+                                     f"{proc.returncode}:\n{out[-4000:]}")
+            figures[f"{name}_checks_ok"] = sum(
+                line.endswith(": ok") for line in out.splitlines())
+    finally:
+        for proc in smokes.values():
+            proc.kill()
+            proc.wait(timeout=60)
+    print(json.dumps({"main_path": "SmolLM-1.7B serve_http", "card": card,
+                      **figures,
+                      "launches": {
+                          path: {k.name: by_path[path][k.name]
+                                 for k in paths[path]}
+                          for path in ("serve_http", "serve_http_tenants")}}),
+          flush=True)
+    return by_path
+
+
+def _http_serve_runs(torch, np, paths, all_kernels) -> tuple:
+    """Phase 13's in-process runs: ``serve_http`` in turns with the direct
+    batcher, then ``serve_http_tenants``. Returns (counts by path, the
+    figures for the phase's line)."""
+    import threading
+
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference import tenancy
+    from picotron_tpu_torch.inference.batcher import (
+        ContinuousBatcher,
+        GenerationResult,
+        Request,
+    )
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.obs import Obs, parse_prometheus
+    from picotron_tpu_torch.tools import serve
+
+    cfg = Config.from_json(CONFIG)
+    cfg.inference.key_schedule = "slot"
+    cfg.inference.decode_block_len = KEYS_BLOCK
+    cfg.inference.attend_impl = "flash"
+    cfg.validate()
+    V = cfg.model.vocab_size
+    engine = InferenceEngine(cfg, DEVICE, slots=8)
+    params = llama.init_params(cfg.model, seed=SEED, device=engine.device)
+    ContinuousBatcher(engine, params, seed=SEED).run(
+        [Request("warm", list(range(1, 25)), max_new_tokens=6,
+                 temperature=0.8)])
+    by_path = {}
+
+    def check_launches(path, counts):
+        launches = {k.name: counts[k.name] for k in paths[path]}
+        idle = [name for name, n in launches.items() if n == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on {path}: {idle}")
+        stray = {k: n for k, n in counts.items() if n and k not in launches}
+        if stray:
+            raise AssertionError(f"kernels of another path launched on "
+                                 f"{path}: {stray}")
+
+    def direct():
+        requests = _requests(np, V, "r")
+        batcher = ContinuousBatcher(engine, params, seed=SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batcher.run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return ([res[r.uid].tokens for r in requests],
+                {"wall_s": wall,
+                 "decode_tokens_per_s": (batcher.generated_tokens
+                                         - len(requests))
+                 / batcher.decode_seconds,
+                 "tokens_per_s": batcher.generated_tokens / wall})
+
+    def over_http(count: bool):
+        requests = _requests(np, V, "r")
+        # a fresh registry for this server: the engine's earlier batchers
+        # counted into the one it has
+        engine.obs = Obs.from_config(engine.cfg.obs)
+        srv = serve.Server(engine, params, seed=SEED, log=lambda *a, **k: None)
+        outs = [{} for _ in requests]
+        try:
+            srv.start()
+            torch.cuda.synchronize()
+            if count:
+                for kern in all_kernels:
+                    kern.launches = 0
+            threads = []
+            for i, r in enumerate(requests):
+                spec = {"prompt": r.prompt, "uid": r.uid,
+                        "max_new_tokens": r.max_new_tokens,
+                        "temperature": r.temperature, "top_p": r.top_p,
+                        "stream": i in HTTP_STREAMED}
+                t = threading.Thread(target=_http_client,
+                                     args=(srv.port, spec, outs[i]))
+                t.start()
+                threads.append(t)
+                deadline = time.monotonic() + HTTP_TIMEOUT_S
+                # the next request waits for this one's admission to the
+                # queue (or its result), so both runs admit in one order
+                while (r.uid not in srv.front._waiters
+                       and "t_end" not in outs[i]):
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"serve_http: {r.uid} never "
+                                             f"reached the front end")
+                    time.sleep(0.001)
+            for t in threads:
+                t.join(HTTP_TIMEOUT_S)
+                if t.is_alive():
+                    raise AssertionError("serve_http: a client hung")
+            torch.cuda.synchronize()
+            counts = {kern.name: kern.launches for kern in all_kernels}
+            st, stats = _http(srv.port, "GET", "/statz")
+            mst, text = _http(srv.port, "GET", "/metrics")
+            prom = parse_prometheus(text)
+            if not (st == mst == 200 and stats["completed"] == len(requests)
+                    and prom['picotron_requests_total{state="completed"}']
+                    == stats["completed"]
+                    and prom["picotron_generated_tokens_total"]
+                    == stats["generated_tokens"]):
+                raise AssertionError(f"serve_http: /metrics and /statz "
+                                     f"disagree ({stats})")
+            b = srv.front._batcher
+            decode_rate = ((b.generated_tokens - len(requests))
+                           / b.decode_seconds)
+        finally:
+            srv.drain_and_join(timeout=HTTP_TIMEOUT_S)
+        for i, (r, out) in enumerate(zip(requests, outs)):
+            res = out.get("result") or {}
+            if (out.get("status") != 200 or res.get("finish_reason")
+                    != "length" or len(res.get("tokens", ())) != NEW_TOKENS
+                    or not all(0 <= t < V for t in res["tokens"])):
+                raise AssertionError(f"serve_http {r.uid}: "
+                                     f"{out.get('status')} {res}")
+            if i in HTTP_STREAMED and out["rows"] != res["tokens"]:
+                raise AssertionError(f"serve_http {r.uid}: the token rows "
+                                     f"are not the result's tokens")
+        wall = (max(o["t_end"] for o in outs)
+                - min(o["t_send"] for o in outs))
+        ttft = sorted(o["result"]["ttft_s"] for o in outs)
+        host = {requests[i].uid: (outs[i]["t_first"] - outs[i]["t_send"]
+                                  - outs[i]["result"]["ttft_s"])
+                for i in HTTP_STREAMED}
+        fig = {"wall_s": wall, "decode_tokens_per_s": decode_rate,
+               "tokens_per_s": len(requests) * NEW_TOKENS / wall,
+               "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+               "front_end_host_s": host}
+        return ([o["result"]["tokens"] for o in outs], fig,
+                counts if count else None)
+
+    turns = {"direct": [], "http": []}
+    want = None
+    for mode in ("direct", "http", "http", "direct"):
+        if mode == "direct":
+            got, fig = direct()
+        else:
+            got, fig, counts = over_http(count=not turns["http"])
+            if counts is not None:
+                check_launches("serve_http", counts)
+                by_path["serve_http"] = counts
+        if want is None:
+            want = got
+        bad = {i: next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+                       min(len(g), len(w)))
+               for i, (g, w) in enumerate(zip(got, want)) if g != w}
+        if bad:
+            raise AssertionError(f"serve_http ({mode}): streams part from "
+                                 f"the direct run's at {bad}")
+        turns[mode].append(fig)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # -- serve_http_tenants -------------------------------------------------
+    tcfg = _tenancy_config()
+    pack, registry = tenancy.build_tenancy(tcfg)
+    engine = InferenceEngine(tcfg, DEVICE, slots=8, adapters=pack)
+    params = llama.init_params(tcfg.model, seed=SEED, device=engine.device)
+    ContinuousBatcher(engine, params, seed=SEED).run(
+        [Request("warm", list(range(1, 25)), max_new_tokens=2,
+                 tenant="acme", adapter_slot=1)])
+    srv = serve.Server(engine, params, seed=SEED, tenants=registry,
+                       log=lambda *a, **k: None)
+    rng = np.random.default_rng(SEED + 13)
+    specs = [{"prompt": rng.integers(1, V, n).tolist(), "uid": uid,
+              "max_new_tokens": NEW_TOKENS, **({"tenant": t} if t else {})}
+             for uid, t, n in (("t_base", None, 130), ("t_acme", "acme", 260),
+                               ("t_hooli", "hooli", 400))]
+    outs = [{} for _ in specs]
+    try:
+        srv.start()
+        st, body = _http(srv.port, "POST", "/tenants", HTTP_TENANT)
+        if st != 200 or body.get("adapter_slot") != 4:
+            raise AssertionError(f"serve_http_tenants: POST /tenants {st} "
+                                 f"{body}")
+        st, listed = _http(srv.port, "GET", "/tenants")
+        names = {t["name"]: t["adapter_slot"] for t in listed["tenants"]}
+        if names.get("hooli") != 4:
+            raise AssertionError(f"serve_http_tenants: GET /tenants {listed}")
+        torch.cuda.synchronize()
+        for kern in all_kernels:
+            kern.launches = 0
+        threads = [threading.Thread(target=_http_client,
+                                    args=(srv.port, spec, out))
+                   for spec, out in zip(specs, outs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(HTTP_TIMEOUT_S)
+            if t.is_alive():
+                raise AssertionError("serve_http_tenants: a client hung")
+        torch.cuda.synchronize()
+        counts = {kern.name: kern.launches for kern in all_kernels}
+        st, body = _http(srv.port, "DELETE", "/tenants/hooli")
+        st2, gone = _http(srv.port, "POST", "/generate",
+                          {"prompt": [1, 2, 3], "tenant": "hooli"})
+        if st != 200 or st2 != 400 or "unknown tenant" not in gone["error"]:
+            raise AssertionError(f"serve_http_tenants: DELETE {st} {body}, "
+                                 f"then {st2} {gone}")
+    finally:
+        srv.drain_and_join(timeout=HTTP_TIMEOUT_S)
+    check_launches("serve_http_tenants", counts)
+    for spec, out in zip(specs, outs):
+        res = out.get("result") or {}
+        if (out.get("status") != 200 or res.get("finish_reason") != "length"
+                or len(res.get("tokens", ())) != NEW_TOKENS):
+            raise AssertionError(f"serve_http_tenants {spec['uid']}: "
+                                 f"{out.get('status')} {res}")
+    merged = llama.merge_adapter(params, pack.random_leaves(
+        HTTP_TENANT["adapter_rank"], HTTP_TENANT["adapter_seed"]))
+    hooli = outs[2]["result"]
+    gap = _greedy_agrees(torch, llama, merged, engine.cfg, GenerationResult(
+        "t_hooli", specs[2]["prompt"], hooli["tokens"], "length"))
+    del merged, engine, params, srv
+    torch.cuda.empty_cache()
+    by_path["serve_http_tenants"] = counts
+    return by_path, {
+        "decode_block_len": KEYS_BLOCK,
+        "streamed": [f"r{i}" for i in HTTP_STREAMED],
+        "runs_in_turns": turns,
+        **{f"{k}_decode_tokens_per_s_mean": statistics.mean(
+            f["decode_tokens_per_s"] for f in v) for k, v in turns.items()},
+        "same_bits_as_direct": True,
+        "tenants_hot_added_greedy_gap": gap}
+
+
+def _http_cli_run() -> dict:
+    """Phase 13's CLI run: ``python -m picotron_tpu_torch.tools.serve`` on
+    phase 3's config at full width with random weights, one POST, then
+    SIGTERM with a streamed request in flight. Returns its figures."""
+    import signal
+    import tempfile
+    import threading
+
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw["inference"] = {"attend_impl": "flash", "key_schedule": "slot",
+                        "decode_block_len": KEYS_BLOCK}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "picotron_tpu_torch.tools.serve",
+             "--config", path, "--random-init", "--port", "0"], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lines, log = _child_lines(proc), []
+        try:
+            port = None
+            while port is None:
+                line = lines.get(timeout=HTTP_TIMEOUT_S)
+                if line is None:
+                    raise AssertionError(
+                        f"serve CLI exited {proc.wait(60)} before serving:\n"
+                        + "".join(log[-40:]))
+                log.append(line)
+                if line.startswith("{"):
+                    evt = json.loads(line)
+                    if evt.get("evt") == "serving":
+                        port = evt["port"]
+            startup = time.perf_counter() - t0
+            st, res = _http(port, "POST", "/generate",
+                            {"prompt": list(range(1, 25)),
+                             "max_new_tokens": 16})
+            if (st, res.get("finish_reason"), len(res.get("tokens", ()))) \
+                    != (200, "length", 16):
+                raise AssertionError(f"serve CLI: POST {st} {res}")
+            out = {}
+            client = threading.Thread(target=_http_client, args=(
+                port, {"prompt": list(range(1, 33)), "stream": True,
+                       "max_new_tokens": HTTP_LONG_TOKENS}, out))
+            client.start()
+            deadline = time.monotonic() + HTTP_TIMEOUT_S
+            while "t_first" not in out and "t_end" not in out:
+                if time.monotonic() > deadline:
+                    raise AssertionError("serve CLI: no first token")
+                time.sleep(0.005)
+            at_signal = len(out.get("rows", ()))
+            t_sig = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=HTTP_TIMEOUT_S)
+            t_exit = time.perf_counter()
+            client.join(HTTP_TIMEOUT_S)
+        finally:
+            proc.kill()
+            proc.wait(timeout=60)
+    res = out.get("result") or {}
+    if rc != 0 or out.get("status") != 200 \
+            or res.get("finish_reason") != "length" \
+            or len(res.get("tokens", ())) != HTTP_LONG_TOKENS \
+            or out["rows"] != res["tokens"]:
+        raise AssertionError(f"serve CLI: exit {rc} after SIGTERM, the "
+                             f"request in flight {out.get('status')} "
+                             f"{res.get('finish_reason')} "
+                             f"{len(res.get('tokens', ()))} tokens")
+    return {"cli_startup_s": startup, "cli_sigterm_to_exit_s": t_exit - t_sig,
+            "cli_tokens_after_sigterm": HTTP_LONG_TOKENS - at_signal}
+
+
 def _tenant_requests(np, vocab: int, tag: str, registry) -> list:
     """The tenancy phase's 10 requests in ``TENANT_TRAFFIC``'s order, each
     under its tenant's priority and adapter slot (``registry.resolve``),
@@ -3649,7 +4099,9 @@ def main() -> int:
              "serve_chaos": SERVING_KERNELS,
              "serve_overlap": SERVING_KERNELS,
              "serve_lane_paged": SERVING_PAGED_KERNELS,
-             "serve_lane_spec": SERVING_KERNELS}
+             "serve_lane_spec": SERVING_KERNELS,
+             "serve_http": SERVING_KERNELS,
+             "serve_http_tenants": SERVING_TENANT_KERNELS}
     by_path.update(timed("serve_paged", lambda: _paged_serve_phase(
         torch, np, card, paths, KERNELS, keep=spec_off)))
     # 6. several tenants in one batch: the multi-LoRA path through H
@@ -3678,8 +4130,11 @@ def main() -> int:
     # 12. the overlap pipeline and the mixed prefill lane on phase 3's model
     by_path.update(timed("serve_pipeline", lambda: _pipeline_phase(
         torch, np, card, paths, KERNELS)))
+    # 13. the HTTP front end: in process, tenants, the CLI, --smoke
+    by_path.update(timed("serve_http", lambda: _http_phase(
+        torch, np, card, paths, KERNELS)))
 
-    # 13. the closing lines: each kernel's launches on its own path (the
+    # 14. the closing lines: each kernel's launches on its own path (the
     # first path that runs it: serving for A, B, C; each paged run for its
     # variant of C; the tenancy run for H; int8 serving for C-int8 and G;
     # training for D, E, F), and on each path

@@ -27,9 +27,10 @@ raises). A training run does not read it, and the JAX package's own
 ``to_dict`` writes it at its default (true), so a dump of a JAX config
 loads here for training.
 
-Besides, tenants or a tenant manifest (``inference.tenancy``) are refused
-by the generate CLI (only the JAX package's ``tools/serve.py`` reads them,
-and the port has no serve.py yet), and ``Config.check_trainable`` (called
+Besides, tenants or a tenant manifest (``inference.tenancy``) are served
+by ``tools/serve.py`` (``python -m picotron_tpu_torch.tools.serve``) and
+refused by the generate CLI, which serves one adapter with ``--adapter``;
+and ``Config.check_trainable`` (called
 by the trainer) refuses what the port's trainer lacks: any parallelism
 (dp, tp, pp or cp above 1, zero1, fsdp), ``remat`` ``"save_attn"`` and
 ``"offload"``, HF datasets, a checkpoint mirror tier
@@ -209,9 +210,15 @@ class ResilienceConfig:
 
 @dataclass
 class ObsConfig:
-    """Read only so that ``check_trainable`` can refuse the JAX trainer's
-    telemetry outputs, which the port does not write."""
+    """Telemetry (``picotron_tpu_torch/obs``): ``enabled`` and
+    ``sample_window`` build the serving stack's metrics registry
+    (``Obs.from_config``); the JAX trainer's telemetry outputs are read
+    only so that ``check_trainable`` can refuse them."""
 
+    # false swaps in null instruments (no bookkeeping on the hot paths)
+    enabled: bool = True
+    # raw samples each histogram keeps for the exact /statz percentiles
+    sample_window: int = 4096
     metrics_jsonl: str = ""
     trace_path: str = ""
 
@@ -439,17 +446,15 @@ INERT_FIELDS = {
     ("resilience", "chaos_stall_rank_s"): "inert while "
                                           "chaos_stall_rank_at_step is "
                                           "empty (check_trainable)",
-    ("obs", "enabled"): "switches the JAX package's counters and spans "
-                        "(obs/*), which the port has none of yet",
-    ("obs", "span_ring"): "sizes the JAX package's span ring, which the "
-                          "port has none of yet",
-    ("obs", "sample_window"): "sizes the JAX package's histograms, which "
-                              "the port has none of yet",
-    ("obs", "profile_dir"): "on-demand profiler captures of the JAX CLIs "
-                            "and serve.py; the port has neither yet",
-    ("obs", "profile_seconds"): "on-demand profiler captures of the JAX "
-                                "CLIs and serve.py; the port has neither "
-                                "yet",
+    ("obs", "span_ring"): "sizes the JAX package's span ring; the port's "
+                          "obs has no tracer until the obs slice (serve.py "
+                          "answers /tracez with 501)",
+    ("obs", "profile_dir"): "on-demand profiler captures; the port's obs "
+                            "has no profiler until the obs slice (serve.py "
+                            "answers /profilez with 501)",
+    ("obs", "profile_seconds"): "on-demand profiler captures; the port's "
+                                "obs has no profiler until the obs slice "
+                                "(serve.py answers /profilez with 501)",
 }
 
 
@@ -676,6 +681,8 @@ class Config:
             raise ValueError(
                 "inference.spec_history_window must be >= 0 (0 = "
                 "unbounded match scan)")
+        if self.obs.sample_window < 1:
+            raise ValueError("obs.sample_window must be >= 1")
         sc = inf.spec_controller
         if not isinstance(sc.enabled, bool):
             raise ValueError(

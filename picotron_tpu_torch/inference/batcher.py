@@ -98,9 +98,23 @@ alone. One lane: a lane-worthy request waits while the lane is busy.
 ``stats()`` adds the ``overlap`` payload (issue-to-issue gaps, host work a
 step, the device's share of the wall time) and the lane's tallies.
 
+Telemetry: the batcher records into the engine's metrics registry
+(``engine.obs``, or ``obs=``): ``counters`` is a ``CounterDict`` mirrored
+into ``picotron_requests_total{state}``, the queue-wait and TTFT windows
+are registry histograms (the ``/statz`` percentiles and the ``/metrics``
+buckets are one instrument), and tokens, drafts and each tenant's
+requests, tokens, latencies and SLOs count into their families;
+``refresh_gauges`` re-reads the occupancy gauges from host state alone,
+from any thread. ``on_token(uid, token)`` sees every emitted token from
+inside ``step()``, once the batcher has accepted it: the serial round, the
+overlap pipeline's sync and the lane's landing alike (the serve front
+end's stream).
+
 Not ported yet: dp serving's rebalance under overlap and its per-shard
-lanes, the JAX benchmark's synthetic device wait, and the ``picotron_*``
-metric families and request spans.
+lanes, the JAX benchmark's synthetic device wait, the request spans, and
+the per-slot and per-drafter speculation, controller, dispatch-time,
+gap, host-work, lane and stall metric families (``stats()`` holds their
+numbers).
 """
 
 from __future__ import annotations
@@ -108,7 +122,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -123,6 +137,7 @@ from picotron_tpu_torch.inference.speculative import (
 )
 from picotron_tpu_torch.inference.kv_cache import cache_bytes
 from picotron_tpu_torch.models.llama import param_bytes
+from picotron_tpu_torch.obs.metrics import percentiles_of
 from picotron_tpu_torch.resilience.retry import retry
 from picotron_tpu_torch.utils import log0
 
@@ -130,16 +145,6 @@ from picotron_tpu_torch.utils import log0
 # the retained recent samples of the issue-to-issue gaps and the host work
 # a step (the JAX registry's histogram window)
 SAMPLE_WINDOW = 4096
-
-
-def _percentiles(samples) -> Optional[dict]:
-    """{p50, p95, p99, n} of a sample window (seconds), None when empty."""
-    if not samples:
-        return None
-    p50, p95, p99 = np.percentile(np.asarray(samples, np.float64),
-                                  [50, 95, 99])
-    return {"p50": float(p50), "p95": float(p95), "p99": float(p99),
-            "n": len(samples)}
 
 
 def device_lost(e: BaseException) -> bool:
@@ -233,14 +238,20 @@ class ContinuousBatcher:
     ``params`` must live on the engine's device. One batcher owns one
     cache. ``drafter`` replaces the configured drafter of a speculative
     engine (a scripted one in tests). ``clock`` (deadlines, latencies) and
-    ``sleep`` (the retry backoff) are injectable for tests.
+    ``sleep`` (the retry backoff) are injectable for tests. ``on_token``
+    (``on_token(uid, token)``) sees every emitted token, from inside
+    ``step()``; ``obs`` replaces the engine's telemetry bundle.
     """
 
     def __init__(self, engine, params, seed: int = 0, clock=time.monotonic,
-                 drafter=None, sleep=time.sleep):
+                 drafter=None, sleep=time.sleep,
+                 on_token: Optional[Callable] = None, obs=None):
         self.engine = engine
         self.params = params
         self._clock = clock
+        # one registry across engine, batcher and front end unless injected
+        self.obs = obs if obs is not None else engine.obs
+        self.on_token = on_token
         # the round schedule's draws; the slot schedule's base keys come
         # from the threefry chain, one split per admission
         self._gen = torch.Generator(device=engine.device).manual_seed(seed)
@@ -305,9 +316,28 @@ class ContinuousBatcher:
         # prompt tokens admitted this scheduler round (_prefill_gate)
         self._round_prefill_tokens = 0
         # lifetime counters (bench + tests); every submitted request ends in
-        # exactly one terminal state (completed = eos or length)
-        self.counters = {"admitted": 0, "completed": 0, "expired": 0,
-                         "errored": 0, "shed": 0}
+        # exactly one terminal state (completed = eos or length). A
+        # CounterDict: plain-dict reads, every write mirrored into
+        # picotron_requests_total{state}
+        reg = self.obs.registry
+        self.counters = reg.counter_dict(
+            "picotron_requests_total",
+            ("admitted", "completed", "expired", "errored", "shed"),
+            help="request accounting by terminal state (+ admitted)")
+        # the /statz percentile windows and the /metrics histograms: one
+        # instrument, two renderings
+        self._queue_wait_hist = reg.histogram(
+            "picotron_queue_wait_seconds", "submit -> admit")
+        self._ttft_hist = reg.histogram(
+            "picotron_ttft_seconds", "submit -> first token")
+        self._tokens_total = reg.counter(
+            "picotron_generated_tokens_total", "tokens emitted to streams")
+        self._draft_proposed_total = reg.counter(
+            "picotron_draft_proposed_total",
+            "draft tokens proposed (speculative engines)")
+        self._draft_accepted_total = reg.counter(
+            "picotron_draft_accepted_total",
+            "draft tokens accepted into emitted streams")
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.generated_tokens = 0
@@ -335,6 +365,7 @@ class ContinuousBatcher:
         self._gaps: deque = deque(maxlen=SAMPLE_WINDOW)
         self._host_work: deque = deque(maxlen=SAMPLE_WINDOW)
         self._t_last_sync_end = None
+        self._host_sync_s = 0.0  # the last read-back's wait on the card
         self._step_sync_wait = 0.0
         self._ov_device_s = 0.0
         self._ov_t0 = self._ov_t1 = None
@@ -398,6 +429,11 @@ class ContinuousBatcher:
                 or any(s is not None for s in self._slots)
                 or self._inflight is not None)
 
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for a slot (the bounded-queue admission gate)."""
+        return len(self._pending)
+
     # ---- paged admission pricing ------------------------------------------
 
     @property
@@ -411,6 +447,15 @@ class ContinuousBatcher:
         still generate under the window."""
         return len(req.prompt) + max(0, min(
             req.max_new_tokens, self.engine.max_seq_len - len(req.prompt)))
+
+    def token_load(self) -> int:
+        """Worst-case token commitment of every queued and live request:
+        the token-budget admission gate's load."""
+        load = sum(self.commitment(r) for r in self._pending)
+        for s in self._slots:
+            if s is not None:
+                load += self.commitment(s.req)
+        return load
 
     def page_commitment(self, req: Request) -> int:
         """Worst-case pool pages ``req`` can occupy: its commitment plus
@@ -433,15 +478,33 @@ class ContinuousBatcher:
 
     # ---- multi-tenant accounting ------------------------------------------
 
+    @staticmethod
+    def _tname(req: Request) -> str:
+        """The request's tenant label ("" counts as "base")."""
+        return req.tenant or "base"
+
     def _tstat(self, req: Request) -> dict:
-        """The tally of ``req``'s tenant ("" counts as "base")."""
-        name = req.tenant or "base"
+        """The tally of ``req``'s tenant."""
+        name = self._tname(req)
         st = self._tenant_stats.get(name)
         if st is None:
             st = {"requests": 0, "tokens": 0, "shed": 0,
                   "prefill_deferred": 0, "prefill_preempts": 0}
             self._tenant_stats[name] = st
         return st
+
+    def _tenant_count(self, req: Request, state: str) -> None:
+        self.obs.registry.counter(
+            "picotron_tenant_requests_total",
+            "request accounting by tenant and terminal state (+ admitted)",
+            tenant=self._tname(req), state=state).inc()
+
+    def _tenant_slo(self, req: Request, slo: str, met: bool) -> None:
+        self.obs.registry.counter(
+            "picotron_tenant_slo_total",
+            "per-tenant SLO attainment by target and outcome",
+            tenant=self._tname(req), slo=slo,
+            outcome="met" if met else "missed").inc()
 
     def _tenant_requests(self, tenant: str) -> list:
         """One tenant's queued and live requests."""
@@ -495,8 +558,80 @@ class ContinuousBatcher:
         self._submit_t.pop(req.uid, None)
         self.counters["shed"] += 1
         self._tstat(req)["shed"] += 1
+        self._tenant_count(req, "shed")
         self._results[req.uid] = GenerationResult(
             req.uid, list(req.prompt), [], "shed")
+
+    def shed_pending(self) -> None:
+        """Finish every queued (never admitted) request "shed": the
+        graceful drain. Live slots run on; work that never started goes
+        back to its client, to retry on another replica."""
+        while self._pending:
+            self._shed(self._pending.popleft())
+
+    def refresh_gauges(self) -> tuple:
+        """Re-read live occupancy into the registry gauges; returns
+        ``(queued, active)``. Called by ``stats()`` and by the serve front
+        end's ``/metrics`` render without the front end's lock: it reads
+        host state alone (snapshots of the queue and the slot list, the
+        host page allocator's counts) and mutates no batcher state."""
+        pending = list(self._pending)
+        slots = list(self._slots)
+        queued = len(pending)
+        active = sum(s is not None for s in slots)
+        reg = self.obs.registry
+        reg.gauge("picotron_queue_depth",
+                  "requests waiting for a slot").set(queued)
+        reg.gauge("picotron_active_slots",
+                  "slots holding a live request").set(active)
+        # one shard: the JAX package's dp gauges at dp 1, so scrapers
+        # never branch
+        reg.gauge("picotron_dp_size",
+                  "dp shards of this logical engine").set(1)
+        reg.gauge("picotron_shard_occupancy", "occupied slots by dp shard",
+                  shard="0").set(active)
+        if self.paged is not None:
+            total = self.paged.pool.usable_pages
+            live = self.paged.pool.live_count
+            reg.gauge("picotron_kv_pages_live",
+                      "KV pool pages holding live tokens").set(live)
+            reg.gauge("picotron_kv_pool_utilization",
+                      "live / usable KV pool pages").set(
+                          live / max(total, 1))
+        if self.engine.spec_len > 0:
+            reg.gauge("picotron_spec_accept_rate",
+                      "fraction of proposed draft tokens accepted").set(
+                          self.accept_rate or 0.0)
+            reg.gauge("picotron_spec_len",
+                      "mean effective draft length over occupied slots"
+                      ).set(self.spec_len_effective())
+        queued_by: dict = {}
+        for r in pending:
+            name = self._tname(r)
+            queued_by[name] = queued_by.get(name, 0) + 1
+        active_by: dict = {}
+        pages_by: dict = {}
+        for s in slots:
+            if s is None:
+                continue
+            name = self._tname(s.req)
+            active_by[name] = active_by.get(name, 0) + 1
+            if self.paged is not None:
+                pages_by[name] = (pages_by.get(name, 0)
+                                  + self.page_commitment(s.req))
+        for name in set(self._tenant_stats) | set(queued_by) | set(active_by):
+            reg.gauge("picotron_tenant_queue_depth",
+                      "queued requests by tenant",
+                      tenant=name).set(queued_by.get(name, 0))
+            reg.gauge("picotron_tenant_active_slots",
+                      "occupied slots by tenant",
+                      tenant=name).set(active_by.get(name, 0))
+            if self.paged is not None:
+                reg.gauge("picotron_tenant_pages_committed",
+                          "worst-case page commitment of live slots, "
+                          "by tenant",
+                          tenant=name).set(pages_by.get(name, 0))
+        return queued, active
 
     def stats(self) -> dict:
         """Serving counters (the JAX batcher's ``/statz`` fields that the
@@ -515,15 +650,20 @@ class ContinuousBatcher:
         (summed issue-to-read-back windows), the wall time and their ratio;
         ``mixed`` whether the lane runs and whether it is mid-prompt; the
         lane's prompt tokens and the solo prefills' decode stall beside
-        them."""
+        them. ``queue_wait_s`` and ``ttft_s`` are percentiles over the
+        registry histograms' recent windows (None before a sample or with
+        ``obs.enabled: false``)."""
+        queued, active = self.refresh_gauges()
         d = {
             **self.counters,
             "decode_dispatches": self.decode_dispatches,
             "prefill_dispatches": self.prefill_dispatches,
             "generated_tokens": self.generated_tokens,
-            "queued": len(self._pending),
-            "active_slots": sum(s is not None for s in self._slots),
+            "queued": queued,
+            "active_slots": active,
             "slots": len(self._slots),
+            "queue_wait_s": self._queue_wait_hist.percentiles(),
+            "ttft_s": self._ttft_hist.percentiles(),
             "weight_dtype": self.engine.weight_dtype,
             "weight_bytes": param_bytes(self.params),
             "kv_cache_dtype": str(self.engine.cache_dtype).removeprefix(
@@ -542,13 +682,14 @@ class ContinuousBatcher:
             d["tenants"] = {name: dict(st)
                             for name, st in self._tenant_stats.items()}
         ov = {"enabled": self._overlap,
-              "dispatch_gap_s": _percentiles(self._gaps),
-              "host_work_s": _percentiles(self._host_work)}
+              "dispatch_gap_s": percentiles_of(self._gaps),
+              "host_work_s": percentiles_of(self._host_work)}
         if self._ov_t0 is not None and self._ov_t1 is not None:
             wall = max(self._ov_t1 - self._ov_t0, 1e-9)
             ov.update(device_busy_s=self._ov_device_s, wall_s=wall,
                       overlap_efficiency=min(1.0, self._ov_device_s / wall))
         d["overlap"] = ov
+        d["last_host_sync_s"] = self._host_sync_s
         d["mixed"] = {"enabled": self._mixed,
                       "lanes_active": sum(ln is not None
                                           for ln in self._lanes)}
@@ -579,6 +720,19 @@ class ContinuousBatcher:
     def _finish(self, i: int, reason: str) -> None:
         s = self._slots[i]
         self.counters[self._TERMINAL[reason]] += 1
+        self._tenant_count(s.req, self._TERMINAL[reason])
+        if (len(s.generated) > 1 and s.ttft_s is not None
+                and s.submit_t is not None):
+            # the request's mean time per output token after the first
+            tpot = ((self._clock() - s.submit_t - s.ttft_s)
+                    / (len(s.generated) - 1))
+            self.obs.registry.histogram(
+                "picotron_tenant_tpot_seconds",
+                "mean per-token decode latency by tenant",
+                tenant=self._tname(s.req)).observe(tpot)
+            if s.req.tpot_slo_ms is not None:
+                self._tenant_slo(s.req, "tpot",
+                                 tpot * 1000.0 <= s.req.tpot_slo_ms)
         spec_len = drafter_kind = None
         if self.engine.spec_len > 0:
             if self.controller is not None:
@@ -626,9 +780,24 @@ class ContinuousBatcher:
         s = self._slots[i]
         s.generated.append(tok)
         self.generated_tokens += 1
+        self._tokens_total.inc()
         self._tstat(s.req)["tokens"] += 1
+        self.obs.registry.counter(
+            "picotron_tenant_tokens_total",
+            "tokens emitted to streams, by tenant",
+            tenant=self._tname(s.req)).inc()
         if s.ttft_s is None and s.submit_t is not None:
             s.ttft_s = self._clock() - s.submit_t
+            self._ttft_hist.observe(s.ttft_s)
+            self.obs.registry.histogram(
+                "picotron_tenant_ttft_seconds",
+                "submit -> first token, by tenant",
+                tenant=self._tname(s.req)).observe(s.ttft_s)
+            if s.req.ttft_slo_ms is not None:
+                self._tenant_slo(s.req, "ttft",
+                                 s.ttft_s * 1000.0 <= s.req.ttft_slo_ms)
+        if self.on_token is not None:
+            self.on_token(s.req.uid, tok)
         r = s.req
         if r.eos_id is not None and tok == r.eos_id:
             self._finish(i, "eos")
@@ -706,6 +875,7 @@ class ContinuousBatcher:
                                if req.timeout_s is not None else None))
         if submit_t is not None:
             slot.queue_wait_s = now - submit_t
+            self._queue_wait_hist.observe(slot.queue_wait_s)
         self._slots[i] = slot
         self._epoch[i] += 1
         self._adapter[i] = (req.adapter_slot
@@ -766,6 +936,7 @@ class ContinuousBatcher:
 
             self.counters["admitted"] += 1
             self._tstat(req)["requests"] += 1
+            self._tenant_count(req, "admitted")
             # a solo prefill stalls every seated decoder behind it: the
             # stall the mixed lane removes, timed in both modes
             stall0 = (self._clock()
@@ -780,6 +951,7 @@ class ContinuousBatcher:
                 # prefill left there; everyone admitted decodes on
                 _log_dispatch_failure("prefill", req.uid, e)
                 self.counters["errored"] += 1
+                self._tenant_count(req, "errored")
                 self._results[req.uid] = GenerationResult(
                     req.uid, list(req.prompt), [], "error")
                 self._cache = self.engine.release(self._cache, i)
@@ -925,6 +1097,7 @@ class ContinuousBatcher:
                 self._cache = self.engine.seat_slot(self._cache, i, cached)
         self.counters["admitted"] += 1
         self._tstat(req)["requests"] += 1
+        self._tenant_count(req, "admitted")
         self._seat(req, i, submit_t, prefilling=True)
         self._lanes[0] = dict(slot=i, epoch=int(self._epoch[i]), req=req,
                               ids=ids, cached=cached, done_end=cached,
@@ -1135,6 +1308,8 @@ class ContinuousBatcher:
             acc = int(accepted[i]) if accepted is not None else 0
             self.draft_proposed += gi
             self.draft_accepted += acc
+            self._draft_proposed_total.inc(gi)
+            self._draft_accepted_total.inc(acc)
             if self.controller is not None:
                 self.controller.record(i, gi, acc)
 
@@ -1162,6 +1337,7 @@ class ContinuousBatcher:
         """A round read back: its wait, and its issue-to-read-back window
         (the device's share of the wall time counts these)."""
         self._step_sync_wait += t_end - t_sync
+        self._host_sync_s = t_end - t_sync
         self._t_last_sync_end = t_end
         self._ov_device_s += max(0.0, t_end - t_issue)
         self._ov_t1 = t_end

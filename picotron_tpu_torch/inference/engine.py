@@ -80,7 +80,9 @@ past the restored lengths, masked. A restore that itself fails raises
 ``CacheLost``. ``hooks`` (``resilience.chaos.ServingChaos``, or any
 object with ``before_dispatch(kind, active_slots)`` and
 ``poison_logits(kind)``) sees every dispatch first and may raise, sleep
-or turn the dispatch's logits to NaN.
+or turn the dispatch's logits to NaN. ``obs`` is the engine's metrics
+registry (``Obs.from_config(cfg.obs)``), which counts every dispatch by
+kind and which the batcher and the serve front end share.
 
 The JAX package compiles each of these as one jitted program with
 ``lax.scan`` over layers and steps; here they are Python loops that
@@ -104,6 +106,7 @@ from picotron_tpu_torch.inference import (
     tenancy,
 )
 from picotron_tpu_torch.models import llama
+from picotron_tpu_torch.obs import Obs
 from picotron_tpu_torch.ops.rope import precompute_rope, rope_at_positions
 from picotron_tpu_torch.utils import resolve_device, torch_dtype
 
@@ -243,6 +246,9 @@ class InferenceEngine:
         # batcher sets this when it runs the pipeline
         self.defer_advance = False
         self.hooks = hooks
+        # a fresh metrics registry per engine: the batcher and the serve
+        # front end record into it, so one /metrics page covers the stack
+        self.obs = Obs.from_config(self.cfg.obs)
         self._dt = torch_dtype(m.dtype)
         if cache_dtype is None:
             cache_dtype = inf.kv_cache_dtype
@@ -356,8 +362,12 @@ class InferenceEngine:
     # ---- dispatch hooks, sampling in the dispatch, atomic dispatches -------
 
     def _hook(self, kind: str, budget=None) -> None:
-        """Fire the before-dispatch hook with the active slots (``budget >
-        0`` rows; a dispatch without a budget reports none)."""
+        """Count the dispatch (``picotron_dispatch_total{kind}``) and fire
+        the before-dispatch hook with the active slots (``budget > 0``
+        rows; a dispatch without a budget reports none)."""
+        self.obs.registry.counter(
+            "picotron_dispatch_total",
+            "engine dispatches by kind", kind=kind).inc()
         if self.hooks is None:
             return
         slots = ([] if budget is None

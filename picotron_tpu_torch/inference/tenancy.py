@@ -30,9 +30,10 @@ radix prefix cache (``paged_kv.RadixCache``), so identical prompts of two
 tenants never share pages: the adapter changes every activation a cached
 page holds.
 
-``build_tenancy(cfg)`` builds both from ``inference.tenancy``, as the JAX
-package's ``tools/serve.py::_build_tenancy`` does (the port has no
-serve.py yet).
+``build_tenancy(cfg, manifest)`` builds both from ``inference.tenancy``
+(a manifest path overrides its ``manifest``), as the JAX package's
+``tools/serve.py::_build_tenancy`` does; the port's ``tools/serve.py``
+serves them, with ``/tenants`` hot add and remove.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ supervisor can tell "run the same command again" from a crash. A second
 signal raises ``KeyboardInterrupt`` (the operator means it). The handlers
 are installed only on the main thread, and the previous ones come back on
 ``uninstall``, so an embedding process (pytest, a notebook) is left as it
-was.
+was. Each emergency save counts into
+``picotron_emergency_saves_total{outcome}`` on the process-wide registry.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import signal
 import threading
 from typing import Callable, Optional
 
+from picotron_tpu_torch.obs import global_counter
 from picotron_tpu_torch.utils import log0
 
 # EX_TEMPFAIL from sysexits.h: "transient failure, invoke again later", what
@@ -95,10 +97,19 @@ class PreemptionGuard:
             log0(f"emergency save still running after {timeout_s}s "
                  f"deadline; exiting without it (the last periodic "
                  f"checkpoint stands)", flush=True)
+            _count_save("abandoned")
             return False
         if "err" in state:
+            _count_save("failed")
             raise state["err"]
+        _count_save("completed")
         return True
+
+
+def _count_save(outcome: str) -> None:
+    global_counter("picotron_emergency_saves_total",
+                   "emergency checkpoint flushes by outcome",
+                   outcome=outcome).inc()
 
 
 def was_preempted() -> bool:

@@ -6,7 +6,9 @@ restores and safetensors opens cross network mounts where transient
 errors are routine, and the batcher retries a failed dispatch before it
 isolates the failure. Attempts are bounded (a deterministic failure surfaces
 quickly, with the original exception), delays grow exponentially, and
-jitter decorrelates processes that hit the same flake at once.
+jitter decorrelates processes that hit the same flake at once. Every
+failed attempt counts into ``picotron_retries_total{desc}`` on the
+process-wide registry (``obs.GLOBAL_REGISTRY``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import random
 import time
 from typing import Callable
 
+from picotron_tpu_torch.obs import global_counter
 from picotron_tpu_torch.utils import log0
 
 
@@ -44,6 +47,11 @@ def retry(
         try:
             return fn()
         except Exception as e:
+            # retry() has no per-run registry to hand its numbers to, so
+            # failed attempts count process-wide, labeled by call site
+            global_counter("picotron_retries_total",
+                           "failed attempts absorbed by retry()",
+                           desc=desc or "unnamed").inc()
             if attempt == attempts or (fatal is not None and fatal(e)):
                 raise
             delay = backoff * (2 ** (attempt - 1)) * (1.0 + jitter * rng())

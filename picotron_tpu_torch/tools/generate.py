@@ -42,9 +42,9 @@ seed-derived LoRA adapter (slot 1 of a two-slot pack, through kernel H on
 the card); ``--check-adapter-parity`` runs the batch again on a pack-less
 engine fed the merged tree ``W + A @ B`` (an int8 primary merges into its
 fake-quant twin), exact on the CPU and reported as above on the card. A
-config with ``inference.tenancy`` tenants or a manifest is refused: only
-the JAX package's ``tools/serve.py`` serves them, and the port has no
-serve.py yet.
+config with ``inference.tenancy`` tenants or a manifest is refused with a
+pointer to the HTTP server that serves them,
+``python -m picotron_tpu_torch.tools.serve``.
 """
 
 from __future__ import annotations
@@ -271,8 +271,9 @@ def main(argv=None, device=None) -> int:
     cfg = Config.from_json(args.config)
     if cfg.inference.tenancy.tenants or cfg.inference.tenancy.manifest:
         ap.error("inference.tenancy tenants and manifests are served by "
-                 "tools/serve.py, which the PyTorch port does not have "
-                 "yet; generate serves one adapter with --adapter "
+                 "the HTTP server: python -m picotron_tpu_torch.tools.serve "
+                 "--config <this config> (per-tenant adapters, quotas and "
+                 "/tenants); generate serves one adapter with --adapter "
                  "RANK[:SEED[:SCALE]]")
     if args.load_path and cfg.resilience.ckpt_mirror_dir:
         ap.error("resilience.ckpt_mirror_dir: the PyTorch port keeps no "

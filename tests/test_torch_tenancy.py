@@ -941,8 +941,8 @@ def test_tenancy_section_is_kept_and_refused_by_generate(tmp_path, capsys):
         with pytest.raises(SystemExit):
             generate.main(["--config", path, "--random-init",
                            "--prompt-ids", "1,2"], device="cpu")
-        assert ("served by tools/serve.py, which the PyTorch port does "
-                "not have yet") in capsys.readouterr().err
+        assert ("served by the HTTP server: python -m "
+                "picotron_tpu_torch.tools.serve") in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("weights", ["bf16", "int8"])
