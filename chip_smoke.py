@@ -200,7 +200,28 @@ Run from the root of a checkout. Phases, each of which must pass:
    subprocess at full width (``--config --random-init --port 0``: start-up
    seconds, one POST, SIGTERM with a request in flight, which is served,
    and exit 0); ``--smoke`` and ``--smoke --overlap`` on the card;
-14. a ``{"kernels": [...]}`` line with each kernel's launches on its own
+14. prefill/decode disaggregation on phase 5's model and traffic, once
+   each for uniform bf16 pages (``serve_disagg``), int8 KV
+   (``serve_disagg_int8``) and ``hot_bf16`` (``serve_disagg_mixed``): a
+   colocated run (``role: "both"``), then a prefill engine (``role:
+   "prefill"``) prefills each request with a budget of 1, exports it with
+   its first token through ``json.dumps``/``json.loads``, and a decode
+   engine (``role: "decode"``) seats it as ``Request(kv_import=...)``.
+   Gates: no prefill dispatch and 8 seats on the decode side, the
+   colocated greedy streams bit for bit (the repeated prompt, whose
+   payload carries the first prompt's cached last row, within phase 3's
+   logit margin where it parts), every imported page equal to its
+   exported page in every leaf, A and the C variant and no B on the decode
+   side, A and B on the prefill side, a torn payload self-prefilled and
+   counted, the decode pool held by the cache alone afterwards; export and
+   import seconds, raw and JSON bytes, decode tokens/s and TTFT beside the
+   colocated run's. The bf16 run also moves a parked slot with
+   ``migrate_slot`` (the unmoved stream's bits, pages x page bytes moved)
+   and serves the HTTP plane: a one-page prompt through POST /kv/export
+   and POST /generate with ``"kv"`` (the colocated tokens, 1 seat, 0
+   prefill dispatches), the role 503s, GET /kv/pages and /kv/prefixes,
+   and a two-page payload's 413 (the 8 MiB body cap);
+15. a ``{"kernels": [...]}`` line with each kernel's launches on its own
    path (and on each path: ``serve``, ``serve_paged``,
    ``serve_paged_int8``, ``serve_mixed`` (the ``hot_bf16`` page policy),
    ``serve_tenants``, ``serve_int8``, ``train``, ``checkpoint``,
@@ -208,7 +229,8 @@ Run from the root of a checkout. Phases, each of which must pass:
    ``serve_spec_oracle``, ``serve_spec_offscript``, ``serve_slot``,
    ``serve_slot_spec``, ``sample_on_device``, ``serve_chaos``,
    ``serve_overlap``, ``serve_lane_paged``, ``serve_lane_spec``,
-   ``serve_http``, ``serve_http_tenants``), then ``{"ok": true,
+   ``serve_http``, ``serve_http_tenants``, ``serve_disagg``,
+   ``serve_disagg_int8``, ``serve_disagg_mixed``), then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 Any failure exits non-zero before the last line is printed. Without a
@@ -3340,6 +3362,403 @@ def _http_cli_run() -> dict:
             "cli_tokens_after_sigterm": HTTP_LONG_TOKENS - at_signal}
 
 
+# phase 14: prefill/decode disaggregation (inference/page_transport.py)
+# (path, kv_cache_dtype, kv_page_policy) of its three runs, phase 5's pages
+DISAGG_RUNS = (("serve_disagg", "auto", "uniform"),
+               ("serve_disagg_int8", "int8", "uniform"),
+               ("serve_disagg_mixed", "auto", "hot_bf16"))
+# phase 5's repeat of r0: its prefill recomputes only its last row, which
+# the prefill side's radix does not keep (r0's page holds that row), so its
+# payload carries r0's pages and the decode side reads r0's last row where
+# the colocated run reads its own. Every other greedy request's payload is
+# its own prefill's bytes
+REPEAT = 4
+MIGRATE_FROM, MIGRATE_TO = 0, 5  # migrate_slot's slots
+MIGRATE_TOKENS = 32  # the moved slot's greedy stream
+HTTP_PROMPT_LEN = PAGE_LEN  # one bf16 page at full width: under the cap
+
+
+def _disagg_engine(torch, path_cfg, role: str):
+    """An engine of phase 5's paged layout (8 slots, flash attend) in
+    ``role``, warmed up outside every counted run."""
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.inference.engine import InferenceEngine
+
+    kv_dtype, policy, params = path_cfg
+    cfg = Config.from_json(CONFIG)
+    inf = cfg.inference
+    inf.kv_layout, inf.kv_page_len, inf.kv_num_pages = "paged", PAGE_LEN, 0
+    inf.prefix_cache = True
+    inf.kv_cache_dtype, inf.kv_page_policy = kv_dtype, policy
+    inf.role = role
+    cfg.validate()
+    engine = InferenceEngine(cfg, DEVICE, slots=8, attend_impl="flash")
+    ContinuousBatcher(engine, params, seed=SEED).run(
+        [Request("warm", list(range(1, 25)), max_new_tokens=2)])
+    torch.cuda.synchronize()
+    return engine
+
+
+def _greedy_stream(torch, np, engine, params, cache, first: int, slot: int,
+                   n: int) -> list:
+    """``n`` greedy tokens of ``slot`` alone from ``first``, through
+    ``decode_block``."""
+    out, tok = [], first
+    gen = torch.Generator(device=engine.device).manual_seed(SEED)
+    S = engine.slots
+    while len(out) < n:
+        tokens = np.zeros(S, np.int32)
+        tokens[slot] = tok
+        budget = np.zeros(S, np.int32)
+        budget[slot] = n - len(out)
+        cache, toks, counts = engine.decode_block(
+            params, cache, tokens, gen, np.full(S, -1, np.int32), budget,
+            np.zeros(S, np.float32), np.zeros(S, np.int32),
+            np.ones(S, np.float32))[:3]
+        row = toks[slot][: int(counts[slot])].tolist()
+        out += row
+        tok = row[-1]
+    return out
+
+
+def _migrate_run(torch, np, engine, params, prompt) -> dict:
+    """``migrate_slot`` on the card: ``prompt`` prefilled into slot
+    ``MIGRATE_FROM``, moved to the empty slot ``MIGRATE_TO``, then decoded
+    there; the stream must be the unmoved slot's bit for bit and the bytes
+    moved its pages x ``_page_bytes()``."""
+    streams, fig = [], {}
+    for move in (False, True):
+        cache = engine.init_cache()
+        cache, logits = engine.prefill_paged(params, cache, prompt,
+                                             MIGRATE_FROM)[:2]
+        slot = MIGRATE_FROM
+        if move:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, moved = engine.migrate_slot(cache, MIGRATE_FROM,
+                                               MIGRATE_TO, prompt_ids=prompt)
+            torch.cuda.synchronize()
+            fig = {"migrate_s": time.perf_counter() - t0,
+                   "migrate_bytes": moved,
+                   "migrate_pages": engine.paged.pages_for(len(prompt))}
+            slot = MIGRATE_TO
+            if moved != fig["migrate_pages"] * engine._page_bytes():
+                raise AssertionError(f"migrate_slot moved {moved} bytes")
+        streams.append(_greedy_stream(torch, np, engine, params, cache,
+                                      int(torch.argmax(logits[0])), slot,
+                                      MIGRATE_TOKENS))
+        del cache
+    if streams[0] != streams[1]:
+        raise AssertionError(f"migrate_slot: the moved stream parts from "
+                             f"the unmoved one: {streams}")
+    return fig
+
+
+def _pages_equal(torch, pre, pcache, dec, dcache, prompt) -> int:
+    """Every page of ``prompt``'s cached prefix on the decode side equals
+    the prefill side's in every storage leaf (``torch.equal``); returns
+    the pages compared."""
+    from picotron_tpu_torch.inference.paged_kv import slice_page
+
+    src, m_src = pre.paged.acquire_prefix(prompt)
+    dst, m_dst = dec.paged.acquire_prefix(prompt)
+    try:
+        if m_src != len(prompt) or m_dst != len(prompt) \
+                or len(src) != len(dst):
+            raise AssertionError(f"a prompt of {len(prompt)} tokens is "
+                                 f"cached to {m_src} and {m_dst}")
+        for a, b in zip(src, dst):
+            pa, pb = slice_page(pcache, a), slice_page(dcache, b)
+            bad = [k for k in pa if not torch.equal(pa[k], pb[k])]
+            if bad:
+                raise AssertionError(f"page {b} differs from exported page "
+                                     f"{a} in {bad}")
+    finally:
+        pre.paged.release_pages(src)
+        dec.paged.release_pages(dst)
+    return len(src)
+
+
+def _p50_max(xs) -> dict:
+    xs = sorted(xs)
+    return {"p50": xs[len(xs) // 2], "max": xs[-1]}
+
+
+def _disagg_phase(torch, np, card, paths, all_kernels) -> dict:
+    """Phase 14: prefill/decode disaggregation on phase 5's model and
+    traffic (SmolLM-1.7B at full width and depth, 8 slots, 16-row pages,
+    the prefix cache, flash attend), once per entry of ``DISAGG_RUNS``.
+    Each run: a colocated run (``role: "both"``) of the requests; then a
+    prefill engine (``role: "prefill"``) prefills them with a budget of 1,
+    each is exported with its first token, goes through ``json.dumps`` and
+    ``json.loads``, and is seated on a decode engine's batcher (``role:
+    "decode"``) as ``Request(kv_import=payload)``. Every kernel's count is
+    set to 0 before the prefill side and read after the decode side (the
+    path's counts), and read between them. Gates: the decode side runs no
+    prefill dispatch and seats all 8; each greedy stream is the colocated
+    one bit for bit (the repeat, ``REPEAT``, within phase 3's logit margin
+    when not); every imported page equals its exported page in every leaf;
+    the decode side launches A and its C variant and no B, the prefill
+    side A and B; a payload with a flipped CRC self-prefills, finishes
+    "length" and counts one drop; after the requests the decode pool's
+    pages are held by the cache alone. The bf16 run then moves a parked
+    slot (``_migrate_run``) and serves the HTTP plane (``_disagg_http``).
+    Returns the counts by path."""
+    from picotron_tpu_torch.config import Config
+    from picotron_tpu_torch.inference.batcher import ContinuousBatcher, Request
+    from picotron_tpu_torch.models import llama
+
+    base = Config.from_json(CONFIG)
+    V = base.model.vocab_size
+    params = llama.init_params(base.model, seed=SEED,
+                               device=torch.device(DEVICE))
+    by_path = {}
+    for path, kv_dtype, policy in DISAGG_RUNS:
+        path_cfg = (kv_dtype, policy, params)
+        names = {k.name for k in paths[path]}
+        c_name = next(n for n in names if n.startswith("flash_decode"))
+        colo = _disagg_engine(torch, path_cfg, "both")
+        requests = _paged_requests(np, V, "r")
+        cb = ContinuousBatcher(colo, params, seed=SEED)
+        colo_res = cb.run(requests)
+        colo_fig = _decode_figures(cb, len(requests))
+        if path == "serve_disagg":
+            mig = _migrate_run(torch, np, colo, params,
+                               requests[len(requests) - 3].prompt)
+            http_want = ContinuousBatcher(colo, params, seed=SEED).run(
+                [Request("h", list(range(7, 7 + HTTP_PROMPT_LEN)),
+                         max_new_tokens=16)])["h"].tokens
+        del cb, colo
+        torch.cuda.empty_cache()
+
+        pre = _disagg_engine(torch, path_cfg, "prefill")
+        dec = _disagg_engine(torch, path_cfg, "decode")
+        pb = ContinuousBatcher(pre, params, seed=SEED)
+        db = ContinuousBatcher(dec, params, seed=SEED)
+        import_s = []
+        import_prefix = dec.import_prefix
+
+        def timed_import(cache, payload):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = import_prefix(cache, payload)
+            torch.cuda.synchronize()
+            import_s.append(time.perf_counter() - t0)
+            return out
+
+        dec.import_prefix = timed_import
+        torch.cuda.synchronize()
+        for kern in all_kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        firsts = pb.run([Request(r.uid, r.prompt, max_new_tokens=1,
+                                 temperature=r.temperature, top_p=r.top_p)
+                         for r in requests])
+        pre_counts = {k.name: k.launches for k in all_kernels}
+        export_s, raw, wire, handoffs = [], [], [], []
+        for r in requests:
+            t1 = time.perf_counter()
+            payload = pb.export_prefix(r.prompt,
+                                       first_token=firsts[r.uid].tokens[0])
+            export_s.append(time.perf_counter() - t1)
+            text = json.dumps(payload)
+            raw.append(payload["bytes_total"])
+            wire.append(len(text))
+            handoffs.append(Request(r.uid, r.prompt,
+                                    max_new_tokens=r.max_new_tokens,
+                                    temperature=r.temperature,
+                                    top_p=r.top_p,
+                                    kv_import=json.loads(text)))
+        t_dec = time.perf_counter()
+        res = db.run(handoffs)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = {k.name: k.launches for k in all_kernels}
+        dec_counts = {k: counts[k] - pre_counts[k] for k in counts}
+        dec.import_prefix = import_prefix
+        by_path[path] = counts
+
+        for r in requests:
+            got = res[r.uid]
+            if (len(got.tokens) != NEW_TOKENS or got.finish_reason != "length"
+                    or not all(0 <= t < V for t in got.tokens)):
+                raise AssertionError(f"{path} {r.uid}: {len(got.tokens)} "
+                                     f"tokens, {got.finish_reason}")
+        st = db.stats()
+        if (db.prefill_dispatches, db.handoff_seated,
+                st["handoff_seated"]) != (0, len(requests), len(requests)):
+            raise AssertionError(
+                f"{path}: decode side {db.prefill_dispatches} prefill "
+                f"dispatches, {db.handoff_seated} seated")
+        stray = {k: n for k, n in counts.items() if n and k not in names}
+        if (stray or not pre_counts["rmsnorm"]
+                or not pre_counts["flash_attention"]
+                or not dec_counts["rmsnorm"] or not dec_counts[c_name]
+                or dec_counts["flash_attention"]):
+            raise AssertionError(f"{path}: prefill side {pre_counts}, "
+                                 f"decode side {dec_counts}")
+        parted = {}
+        for i, r in enumerate(requests):
+            if i in SAMPLED:
+                continue
+            got, want = res[r.uid].tokens, colo_res[r.uid].tokens
+            if got != want:
+                parted[r.uid] = next(j for j, (x, y) in
+                                     enumerate(zip(got, want)) if x != y)
+        if set(parted) - {requests[REPEAT].uid}:
+            raise AssertionError(f"{path}: greedy streams part from the "
+                                 f"colocated run's at {parted}")
+        repeat_gap = None
+        if parted:
+            repeat_gap = _greedy_agrees(torch, llama, params, dec.cfg,
+                                        res[requests[REPEAT].uid])
+        pages = sum(_pages_equal(torch, pre, pb._cache, dec, db._cache,
+                                 r.prompt) for r in requests)
+        pool = dec.paged.pool
+        refs = pool.refs[1:]
+        if not (np.all(refs[refs > 0] == 1)
+                and dec.paged.radix.evictable_count() == pool.live_count):
+            raise AssertionError(f"{path}: decode pool after the requests: "
+                                 f"{pool.live_count} live, refs "
+                                 f"{np.bincount(refs)}")
+        # a torn payload: dropped and counted, the request self-prefills
+        drops = db.obs.registry.counter("picotron_handoff_dropped_total")
+        d0 = drops.value
+        bad = dict(handoffs[0].kv_import,
+                   crc32=handoffs[0].kv_import["crc32"] ^ 1)
+        torn = db.run([Request("torn", requests[0].prompt,
+                               max_new_tokens=8, kv_import=bad)])["torn"]
+        if (torn.finish_reason, len(torn.tokens), drops.value - d0) != (
+                "length", 8, 1) or db.handoff_seated != len(requests):
+            raise AssertionError(f"{path}: a torn payload gave "
+                                 f"{torn.finish_reason} "
+                                 f"{len(torn.tokens)} tokens, "
+                                 f"{drops.value - d0} drops")
+        seat_ttft = [res[r.uid].ttft_s for r in requests]
+        colo_ttft = [colo_res[r.uid].ttft_s for r in requests]
+        line = {
+            "main_path": f"SmolLM-1.7B {path}", "card": card,
+            "kv_cache_dtype": kv_dtype, "kv_page_policy": policy,
+            "requests": len(requests), "new_tokens_each": NEW_TOKENS,
+            "prefill_side_s": t_dec - t0, "decode_side_s": t_end - t_dec,
+            "export_s": _p50_max(export_s), "import_s": _p50_max(import_s),
+            "raw_bytes": _p50_max(raw), "json_bytes": _p50_max(wire),
+            "raw_bytes_total": sum(raw), "json_bytes_total": sum(wire),
+            "page_bytes": dec._page_bytes(),
+            "decode_tokens_per_s": _decode_figures(
+                db, len(requests))["decode_tokens_per_s"],
+            "colocated_decode_tokens_per_s": colo_fig["decode_tokens_per_s"],
+            "seat_ttft_s": _p50_max(seat_ttft),
+            "colocated_ttft_s": _p50_max(colo_ttft),
+            "prefill_side_dispatches": pb.prefill_dispatches,
+            "decode_side_prefill_dispatches": 0,
+            "handoff_seated": len(requests),
+            "prefix_remote_hits": st["prefix_remote_hits"],
+            "pages_compared_equal": pages,
+            "greedy_same_bits_as_colocated": [
+                r.uid for i, r in enumerate(requests)
+                if i not in SAMPLED and r.uid not in parted],
+            "greedy_parted_at": parted, "repeat_logit_gap": repeat_gap,
+            "launches_prefill_side": {n: pre_counts[n] for n in names},
+            "launches_decode_side": {n: dec_counts[n] for n in names}}
+        del pb, db, res, handoffs
+        torch.cuda.empty_cache()
+        if path == "serve_disagg":
+            line.update(mig)
+            line.update(_disagg_http(torch, np, pre, dec, params, http_want))
+        print(json.dumps(line), flush=True)
+        del pre, dec
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def _http_declared(port: int, path: str, nbytes: int) -> int:
+    """The status a POST of ``nbytes`` gets: the request declares its
+    length and the server answers from it before reading a byte (a body
+    over the cap is refused unread, and writing it after the refusal would
+    meet a closed socket)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.putrequest("POST", path)
+        conn.putheader("Content-Type", "application/json")
+        conn.putheader("Content-Length", str(nbytes))
+        conn.endheaders()
+        return conn.getresponse().status
+    finally:
+        conn.close()
+
+
+def _disagg_http(torch, np, pre, dec, params, want) -> dict:
+    """Phase 14's HTTP plane at full width: ``Server``s over the prefill
+    and decode engines. A ``HTTP_PROMPT_LEN``-token prompt through POST
+    /kv/export, then POST /generate with its ``"kv"``: ``want`` (the
+    colocated tokens), ``/statz`` ``handoff_seated`` 1 and
+    ``prefill_dispatches`` 0; the prefill server's /generate and the
+    decode server's /kv/export answer 503; GET /kv/pages and /kv/prefixes
+    answer; a two-page payload to /kv/import answers 413 (the body cap).
+    Returns the figures."""
+    from picotron_tpu_torch.tools import serve
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    servers = [serve.Server(eng, params, seed=SEED, log=quiet)
+               for eng in (pre, dec)]
+    prompt = list(range(7, 7 + HTTP_PROMPT_LEN))
+    try:
+        for srv in servers:
+            srv.start()
+        ps, ds = servers[0].port, servers[1].port
+        t0 = time.perf_counter()
+        st, out = _http(ps, "POST", "/kv/export", {"prompt": prompt})
+        t_export = time.perf_counter() - t0
+        if st != 200 or len(out["kv"]["pages"]) != 1:
+            raise AssertionError(f"/kv/export: {st}")
+        body = json.dumps({"prompt": prompt, "max_new_tokens": 16,
+                           "kv": out["kv"]})
+        t0 = time.perf_counter()
+        st, got = _http(ds, "POST", "/generate", json.loads(body))
+        t_generate = time.perf_counter() - t0
+        stz = _http(ds, "GET", "/statz")[1]
+        if (st, got.get("tokens"), stz["handoff_seated"],
+                stz["prefill_dispatches"]) != (200, want, 1, 0):
+            raise AssertionError(f"/generate with kv: {st} {got} against "
+                                 f"{want}, statz {stz.get('handoff_seated')}"
+                                 f" seated")
+        roles = (_http(ps, "POST", "/generate", {"prompt": prompt})[0],
+                 _http(ds, "POST", "/kv/export", {"prompt": prompt})[0])
+        ids = ",".join(str(t) for t in prompt)
+        look = _http(ps, "GET", f"/kv/pages?ids={ids}")
+        pref = _http(ps, "GET", "/kv/prefixes")
+        st, two = _http(ps, "POST", "/kv/export",
+                        {"prompt": list(range(7, 7 + 2 * HTTP_PROMPT_LEN))})
+        big = len(json.dumps({"kv": two["kv"]}).encode())
+        if big <= serve.MAX_BODY_BYTES:
+            raise AssertionError(f"a two-page body of {big} bytes is under "
+                                 f"the cap")
+        capped = _http_declared(ds, "/kv/import", big)
+        if (roles != (503, 503) or look[0] != 200
+                or look[1]["matched"] != len(prompt) or pref[0] != 200
+                or st != 200 or capped != 413):
+            raise AssertionError(f"http plane: roles {roles}, /kv/pages "
+                                 f"{look[0]}, /kv/prefixes {pref[0]}, "
+                                 f"two-page export {st}, import {capped}")
+    finally:
+        for srv in servers:
+            srv.drain_and_join(timeout=HTTP_TIMEOUT_S)
+    return {"http_export_s": t_export, "http_generate_with_kv_s": t_generate,
+            "http_generate_body_bytes": len(body),
+            "http_same_tokens_as_colocated": True,
+            "http_role_statuses": list(roles),
+            "http_two_page_body_bytes": big,
+            "http_two_page_import_status": capped,
+            "max_body_bytes": serve.MAX_BODY_BYTES}
+
+
 def _tenant_requests(np, vocab: int, tag: str, registry) -> list:
     """The tenancy phase's 10 requests in ``TENANT_TRAFFIC``'s order, each
     under its tenant's priority and adapter slot (``registry.resolve``),
@@ -4101,7 +4520,10 @@ def main() -> int:
              "serve_lane_paged": SERVING_PAGED_KERNELS,
              "serve_lane_spec": SERVING_KERNELS,
              "serve_http": SERVING_KERNELS,
-             "serve_http_tenants": SERVING_TENANT_KERNELS}
+             "serve_http_tenants": SERVING_TENANT_KERNELS,
+             "serve_disagg": SERVING_PAGED_KERNELS,
+             "serve_disagg_int8": SERVING_PAGED_INT8_KERNELS,
+             "serve_disagg_mixed": SERVING_MIXED_KERNELS}
     by_path.update(timed("serve_paged", lambda: _paged_serve_phase(
         torch, np, card, paths, KERNELS, keep=spec_off)))
     # 6. several tenants in one batch: the multi-LoRA path through H
@@ -4133,8 +4555,12 @@ def main() -> int:
     # 13. the HTTP front end: in process, tenants, the CLI, --smoke
     by_path.update(timed("serve_http", lambda: _http_phase(
         torch, np, card, paths, KERNELS)))
+    # 14. prefill/decode disaggregation: the page transport, migrate_slot
+    # and the serve /kv plane
+    by_path.update(timed("serve_disagg", lambda: _disagg_phase(
+        torch, np, card, paths, KERNELS)))
 
-    # 14. the closing lines: each kernel's launches on its own path (the
+    # 15. the closing lines: each kernel's launches on its own path (the
     # first path that runs it: serving for A, B, C; each paged run for its
     # variant of C; the tenancy run for H; int8 serving for C-int8 and G;
     # training for D, E, F), and on each path

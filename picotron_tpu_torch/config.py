@@ -13,7 +13,7 @@ and ``tests/test_torch_config.py`` holds the port to it:
 
 - declared by a section below and read;
 - refused at load when set to a value the port does not behave as
-  (``REFUSED_AT_LOAD``): disaggregation roles and dp sharding;
+  (``REFUSED_AT_LOAD``): dp sharding;
 - inert (``INERT_FIELDS``, each with its reason): the field changes
   nothing while the port runs as it does, for example
   ``distributed.use_cpu`` (the port runs on the card unless its caller
@@ -359,6 +359,11 @@ class InferenceConfig:
     # slot, so no solo prefill dispatch stalls the decoders. Needs the
     # slot schedule.
     mixed_dispatch: bool = False
+    # Prefill/decode disaggregation (inference/page_transport.py): "both"
+    # serves colocated; "prefill" prefills and hands its pages off through
+    # POST /kv/export (its /generate sheds); "decode" seats imported pages
+    # and decodes. Any role but "both" needs kv_layout "paged".
+    role: str = "both"
 
     def __post_init__(self):
         # from_dict hands the nested sections through as dicts (unknown
@@ -379,7 +384,6 @@ class InferenceConfig:
 # port does not declare: any other value is refused at load. Inference
 # options of paths the port does not have yet.
 REFUSED_AT_LOAD = {
-    ("inference", "role"): ("both",),
     ("inference", "dp_size"): (1,),
 }
 
@@ -744,6 +748,17 @@ class Config:
                     "quantized cache has no full-precision pages to keep "
                     "hot); set kv_cache_dtype: 'auto', or keep "
                     "kv_page_policy: 'uniform' for a fully int8 cache")
+        if inf.role not in ("prefill", "decode", "both"):
+            raise ValueError(
+                f"unknown inference.role {inf.role!r} "
+                "(prefill|decode|both) — 'both' is the colocated default; "
+                "'prefill'/'decode' split a disaggregated fleet")
+        if inf.role != "both" and inf.kv_layout != "paged":
+            raise ValueError(
+                f"inference.role {inf.role!r} requires the paged KV "
+                "layout (finished prefills hand off as pool pages — "
+                "inference/page_transport.py); set inference.kv_layout: "
+                "'paged', or keep role: 'both'")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

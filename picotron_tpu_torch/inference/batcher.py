@@ -32,6 +32,14 @@ pool pages (``page_commitment``): a request that could never fit the pool
 is shed at the door (finish reason "shed", no tokens), and under passing
 pressure the queue waits for live slots to return pages; the prefill is
 ``engine.prefill_paged``, which shares the longest cached prompt prefix.
+A paged request with a handoff payload (``kv_import``, from a prefill
+replica's ``export_prefix``) imports its pages first: when they cover the
+whole prompt and carry the first token, the slot is seated from them with
+no prefill dispatch (``handoff_seated``); otherwise the payload is a
+prefix hint that the admission then hits. A payload the replica cannot
+land is dropped and counted (``picotron_handoff_dropped_total``), and the
+request prefills itself. ``export_prefix`` and ``import_prefix`` are the
+serve front end's /kv plane.
 
 Speculation: the drafter (``inference.drafter``: the prompt-lookup
 ``NgramDrafter``, or the ``LearnedDrafter`` over the engine's hidden rows
@@ -129,6 +137,8 @@ import torch
 
 from picotron_tpu_torch.inference import prng, sampling
 from picotron_tpu_torch.inference.engine import CacheLost
+from picotron_tpu_torch.inference.page_transport import TransportError
+from picotron_tpu_torch.inference.paged_kv import PagePoolExhausted
 from picotron_tpu_torch.inference.speculative import (
     DispatchLatency,
     LearnedDrafter,
@@ -180,6 +190,13 @@ class Request:
     top_p: float = 1.0
     eos_id: Optional[int] = None
     timeout_s: Optional[float] = None
+    # the disaggregated handoff (inference/page_transport.py, paged engines
+    # only): a transport payload whose pages are imported at admission.
+    # With a ``first_token`` and covering the whole prompt, the slot seats
+    # ready to decode with no prefill dispatch; otherwise the payload is a
+    # prefix hint (imported into the radix cache, which the normal
+    # admission then hits)
+    kv_import: Optional[dict] = None
     # ---- multi-tenant serving (inference/tenancy.py) ----------------------
     # tenant name ("" = anonymous base traffic: the null adapter, the
     # default radix domain, class-1 priority, no SLOs)
@@ -338,6 +355,12 @@ class ContinuousBatcher:
         self._draft_accepted_total = reg.counter(
             "picotron_draft_accepted_total",
             "draft tokens accepted into emitted streams")
+        # disaggregation: imports that landed a remote prefix's pages, and
+        # admissions seated straight from a handoff (no prefill dispatch)
+        self._remote_hits_total = reg.counter(
+            "picotron_prefix_remote_hits_total",
+            "transport imports that landed a remote-prefilled prefix")
+        self.handoff_seated = 0
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.generated_tokens = 0
@@ -638,7 +661,8 @@ class ContinuousBatcher:
         port has, the request accounting of ``counters`` among them), with
         the resident bytes of the weights and the cache that int8 storage
         shrinks; on the paged layout, the pool's
-        occupancy and the prefix cache's counters too; with tenants, each
+        occupancy, the prefix cache's counters and the handoff's
+        (``handoff_seated``, ``prefix_remote_hits``) too; with tenants, each
         tenant's tally under ``"tenants"`` (requests admitted, tokens
         emitted, requests shed, admissions the prefill gate deferred or
         let through on TTFT pressure). A
@@ -678,6 +702,8 @@ class ContinuousBatcher:
                 d["spec_controller"] = self.controller.decisions
         if self.paged is not None:
             d.update(self.paged.stats())
+            d["handoff_seated"] = self.handoff_seated
+            d["prefix_remote_hits"] = int(self._remote_hits_total.value)
         if self._tenant_stats:
             d["tenants"] = {name: dict(st)
                             for name, st in self._tenant_stats.items()}
@@ -832,8 +858,16 @@ class ContinuousBatcher:
         adapter slot; return its last-token logits [1, V], or on a
         ``sample_on_device`` engine the first token [1] drawn in the
         dispatch with ``key``. On a ``return_hidden`` engine the prompt's
-        last hidden state seeds the slot's drafting row."""
+        last hidden state seeds the slot's drafting row. A paged request
+        with a handoff payload (``kv_import``) that seats returns
+        ``("handoff", first_token)`` and dispatches nothing."""
         eng = self.engine
+        if self.paged is not None and req.kv_import is not None:
+            seated = self._try_import(req, i)
+            if seated is not None:
+                return seated
+            # the payload landed as a prefix hint (or was dropped): the
+            # paged admission below hits whatever it left in the cache
         sample = ((key, req.temperature, req.top_k, req.top_p)
                   if eng.sample_on_device else None)
         # an engine without a pack takes no ids and runs as without tenancy
@@ -864,6 +898,67 @@ class ContinuousBatcher:
         if self._hidden is not None and hidden:
             self._hidden[i] = hidden[0][0]
         return logits
+
+    def _try_import(self, req: Request, i: int):
+        """Land ``req.kv_import``'s pages and, when the payload covers the
+        whole prompt with its first token, seat slot ``i`` ready to decode:
+        the handoff's admission with no dispatch. Returns ``("handoff",
+        first_token)`` on a seat, None when the payload is only a prefix
+        hint (or pressure evicted part of it before the slot could share
+        it). A payload this replica cannot land (corrupt bytes, no pool
+        room) is dropped and counted, and the request self-prefills: the
+        import released every page it allocated. Idempotent under the
+        dispatch retry: the import skips cached chunks and
+        ``match_prefix`` releases what an earlier attempt held."""
+        payload = req.kv_import
+        self.paged.priced[i] = self.page_commitment(req)
+        try:
+            self._cache, info = self.engine.import_prefix(self._cache,
+                                                          payload)
+        except (TransportError, PagePoolExhausted) as e:
+            self.obs.registry.counter(
+                "picotron_handoff_dropped_total",
+                "kv payloads dropped as locally unusable").inc()
+            log0(f"serving: kv import for {req.uid!r} dropped "
+                 f"({type(e).__name__}: {e}); self-prefilling", flush=True)
+            return None
+        if info["pages_imported"] > 0:
+            # counted when pages land: a retried admission's second import
+            # (everything cached already) adds nothing
+            self._remote_hits_total.inc()
+        ids = [int(t) for t in payload.get("token_ids") or []]
+        first = payload.get("first_token")
+        if first is None or ids != [int(t) for t in req.prompt]:
+            return None
+        cached = self.paged.match_prefix(i, ids, cap_last=False,
+                                         salt=req.tenant)
+        if cached != len(ids):
+            return None
+        self._cache = self.engine.seat_slot(self._cache, i, cached)
+        if self._hidden is not None:
+            # no prefill ran, so no hidden state: zero the row rather than
+            # draft from the previous occupant's (the first verify seeds it)
+            self._hidden[i].zero_()
+        self.handoff_seated += 1
+        return ("handoff", int(first))
+
+    def export_prefix(self, ids, first_token=None,
+                      tenant: str = "") -> dict:
+        """The longest radix-cached prefix of ``ids`` in this batcher's
+        cache as a transport payload (the serve front end's /kv/export and
+        /kv/pages; the caller serializes batcher access). ``tenant``
+        scopes the lookup and rides in the payload."""
+        return self.engine.export_prefix(self._cache, ids,
+                                         first_token=first_token,
+                                         cache_salt=tenant)
+
+    def import_prefix(self, payload) -> dict:
+        """Land a transport payload in this batcher's cache and radix cache
+        (the serve front end's /kv/import). Returns the import's info."""
+        self._cache, info = self.engine.import_prefix(self._cache, payload)
+        if info["pages_imported"] > 0:
+            self._remote_hits_total.inc()
+        return info
 
     def _seat(self, req: Request, i: int, submit_t, prefilling=False):
         """Seat ``req`` in slot ``i``: its slot record, a new seat epoch,
@@ -960,9 +1055,15 @@ class ContinuousBatcher:
                 if stall0 is not None:
                     self.decode_stall_s += self._clock() - stall0
                     self.decode_stalls += 1
-            self._round_prefill_tokens += len(req.prompt)
+            handoff = isinstance(logits, tuple)
+            if not handoff:
+                # a handoff seat costs the prefill gate nothing
+                self._round_prefill_tokens += len(req.prompt)
             self._seat(req, i, submit_t)
-            if self.engine.sample_on_device:
+            if handoff:
+                # the prefill replica sampled the first token already
+                first = [logits[1]]
+            elif self.engine.sample_on_device:
                 first = logits  # drawn in the dispatch
             else:
                 args = (torch.tensor([req.temperature], dtype=torch.float32,
@@ -1064,8 +1165,10 @@ class ContinuousBatcher:
         resumes past it in chunks: again the lane's computation). A cold
         prompt at or under one chunk prefills alone: its one-shot bucketed
         prefill is another computation, and the streams that do not need
-        the lane keep their bits."""
-        if not self._mixed:
+        the lane keep their bits. A handoff payload (``kv_import``) stays
+        serial too: its import may seat the slot with no prefill at
+        all."""
+        if not self._mixed or req.kv_import is not None:
             return False
         if len(req.prompt) > self.engine.prefill_chunk:
             return True

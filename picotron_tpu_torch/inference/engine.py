@@ -19,6 +19,11 @@ Port of the serving subset of ``picotron_tpu/inference/engine.py``:
   prefill only the rest.
 - ``decode_step(...)``: one round-keyed step for every slot, returning
   the step's logits (none on a ``sample_on_device`` engine).
+- ``export_prefix`` / ``import_prefix`` / ``migrate_slot``: the paged
+  layout's page transport (``page_transport.py``): a radix-cached prefix
+  out as a payload of page bytes and into another engine's pool, and a
+  parked slot's pages moved to another slot (``seat_slot`` parks an
+  imported prompt as a slot's length with no dispatch).
 - ``verify(...)``: the speculative draft-verify pass (``spec_len > 0``):
   each slot's last token and its ``spec_len`` drafts in one model pass
   over [slots, spec_len + 1] rows, the acceptance rule, EOS and budget,
@@ -100,6 +105,7 @@ import torch
 from picotron_tpu_torch.config import Config
 from picotron_tpu_torch.inference import (
     kv_cache,
+    page_transport,
     paged_kv,
     prng,
     sampling,
@@ -309,6 +315,9 @@ class InferenceEngine:
         self.paged = paged_kv.PagedKV(self.slots, self.page_len,
                                       self.max_pages, self.num_pages,
                                       prefix_cache=inf.prefix_cache)
+        # the page transport's device ops (page_transport.py, migrate_slot)
+        self._gather_pages = paged_kv.gather_pages
+        self._write_pages = paged_kv.write_pages
 
     # ---- cache ------------------------------------------------------------
 
@@ -531,6 +540,89 @@ class InferenceEngine:
             raise ValueError("seat_slot needs kv_layout='paged'")
         self.paged.set_len(slot, length)
         return paged_kv.set_length(self._sync_tables(cache), slot, length)
+
+    # ---- page transport (prefill/decode disaggregation) -------------------
+
+    def transport_spec(self) -> dict:
+        """The page-layout fingerprint a peer must match to exchange page
+        bytes with this engine (``page_transport.transport_spec``)."""
+        return page_transport.transport_spec(self)
+
+    def export_prefix(self, cache: dict, ids, first_token=None,
+                      cache_salt: str = "") -> dict:
+        """The longest radix-cached prefix of ``ids`` as a transport
+        payload (paged engines only); ``first_token`` rides along when the
+        match covers the whole prompt. ``cache_salt`` (the tenant) keys
+        the lookup and rides in the payload."""
+        return page_transport.export_prefix(self, cache, ids,
+                                            first_token=first_token,
+                                            tenant=cache_salt)
+
+    def import_prefix(self, cache: dict, payload) -> tuple:
+        """Land a transport payload's pages in the pool and the radix cache
+        (in place); returns (cache, info). Only locally missing chunks
+        allocate, and a failure releases every page it allocated."""
+        return page_transport.import_prefix(self, cache, payload)
+
+    def _page_bytes(self) -> int:
+        """Raw bytes one pool page holds across its storage leaves (the
+        transport's ``bytes_total`` a page, and migrate_slot's unit)."""
+        return sum(page_transport.leaf_bytes(leaf) for leaf in
+                   self.transport_spec()["leaves"].values())
+
+    def migrate_slot(self, cache: dict, src: int, dst: int, prompt_ids=None,
+                     cache_salt: str = "") -> tuple:
+        """Move a parked slot's pages from slot ``src`` into empty slot
+        ``dst`` (in place) through the transport's gather and write, with
+        the same bytes, then seat ``dst`` with ``src``'s length and
+        pricing and release ``src``. The dp rebalance's primitive; at
+        dp_size 1 a move within one pool. All or nothing: exhaustion (from
+        the all-or-nothing allocation) or a fault before the write ends
+        releases the fresh pages and leaves ``src`` as it was. Draft rows a
+        verify wrote past the length are not moved (``host_len`` holds
+        accepted tokens only). ``prompt_ids`` (with ``cache_salt``)
+        re-registers the prompt under ``dst``. Returns (cache, bytes
+        moved)."""
+        if self.paged is None:
+            raise ValueError("migrate_slot needs kv_layout='paged'")
+        p = self.paged
+        if not (0 <= src < self.slots and 0 <= dst < self.slots):
+            raise ValueError(
+                f"migrate_slot: slots out of range: {src} -> {dst} "
+                f"(engine has {self.slots})")
+        if src == dst:
+            return cache, 0
+        n_tok = int(p.host_len[src])
+        if n_tok <= 0:
+            raise ValueError(f"migrate_slot: source slot {src} is empty")
+        if int(p.host_len[dst]) > 0:
+            raise ValueError(
+                f"migrate_slot: destination slot {dst} is occupied")
+        npages = p.pages_for(n_tok)
+        src_pids = [int(q) for q in p.tables[src, :npages]]
+        new_pids = p.alloc_import(npages)
+        try:
+            pages = self._gather_pages(cache, self._upload(src_pids,
+                                                           np.int64))
+            cache = self._write_pages(cache, pages,
+                                      self._upload(new_pids, np.int64))
+        except BaseException:
+            # the fresh pages' only holder is this move
+            p.release_pages(new_pids)
+            raise
+        # the destination's row takes the fresh pages (already held for
+        # it), then the source's references drop; shared source pages live
+        # on under their other holders
+        p.tables[dst, :npages] = new_pids
+        p.priced[dst] = p.priced[src]
+        p.set_len(dst, n_tok)
+        p.free_slot(src)
+        if prompt_ids is not None:
+            p.register_prompt(dst, [int(t) for t in prompt_ids],
+                              salt=cache_salt)
+        cache = paged_kv.set_length(self._sync_tables(cache), dst, n_tok)
+        cache = kv_cache.release(cache, src)
+        return cache, npages * self._page_bytes()
 
     def prefill_bucket(self, prompt_len: int) -> int:
         """Power-of-two padding bucket for a prompt."""

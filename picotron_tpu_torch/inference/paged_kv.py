@@ -2,11 +2,11 @@
 copy-on-write.
 
 Port of ``picotron_tpu/inference/paged_kv.py`` for one device (the
-dp-sharded pool and the page transport of disaggregated serving are not
-ported yet). The contiguous cache (``kv_cache.py``) gives every slot its
-own ``max_seq_len`` strip; this layout maps each slot's logical pages to
-pages of one pool through a block table, and shares prompt prefixes
-between requests through a radix trie:
+dp-sharded pool is not ported yet). The contiguous cache
+(``kv_cache.py``) gives every slot its own ``max_seq_len`` strip; this
+layout maps each slot's logical pages to pages of one pool through a
+block table, and shares prompt prefixes between requests through a radix
+trie:
 
 - **Device layout** (``init_cache``): ``k``/``v`` are the pool
   ``[num_layers, num_pages, page_len, n_kv_heads, head_dim]`` (int8 mode
@@ -23,6 +23,13 @@ between requests through a radix trie:
   (``ensure_writable`` plans the copy, ``copy_page`` makes it). The
   decisions, and their order, are the JAX package's, so the two give the
   same tables, refcounts and counters on the same traffic.
+- **Page transport** (prefill/decode disaggregation,
+  ``page_transport.py``): ``gather_pages`` reads a batch of pool pages
+  out page-major, ``write_pages`` writes imported ones in; the radix
+  cache plans and grafts imported chunks (``plan_adopt``, ``adopt``) and
+  names its hottest prefixes (``cached_prefixes``); ``PagedKV`` pins an
+  exported prefix (``acquire_prefix``, ``release_pages``) and allocates
+  an import all or nothing (``alloc_import``, ``finish_import``).
 
 As in ``kv_cache.py``, the device ops update the cache IN PLACE (the pool
 is the largest tensor a server holds) and return it for call-site
@@ -214,6 +221,34 @@ def insert_prefill(cache: dict, kv: dict, slot: int, length: int) -> dict:
         if name not in META_LEAVES:
             cache[name][:, pid, off] = kv[name][:, 0].to(cache[name].dtype)
     cache["lengths"][slot: slot + 1].fill_(length)
+    return cache
+
+
+def slice_page(cache: dict, pid: int) -> dict:
+    """One pool page's storage leaves as ``[L, page_len, ...]`` views (the
+    single-page read of tests and debugging)."""
+    return {name: a[:, pid] for name, a in cache.items()
+            if name not in META_LEAVES}
+
+
+def gather_pages(cache: dict, pids: torch.Tensor) -> dict:
+    """A batch of pool pages' storage leaves as contiguous ``[n, L,
+    page_len, ...]`` tensors (page-major, ``write_pages``' input): the
+    export half of the page transport, one ``index_select`` per leaf on
+    the pool's page axis. ``pids`` [n] int64 on the pool's device."""
+    return {name: a.index_select(1, pids).movedim(1, 0).contiguous()
+            for name, a in cache.items() if name not in META_LEAVES}
+
+
+def write_pages(cache: dict, pages: dict, pids: torch.Tensor) -> dict:
+    """Write a batch of imported pages' storage leaves into pool pages
+    ``pids`` (in place): the import half of the page transport.
+    ``pages[name]`` is ``[n, L, page_len, ...]`` in the pool's dtype (the
+    transport checked the dtypes, so the cast is an identity guard);
+    ``pids`` [n] int64 on the pool's device."""
+    for name, a in pages.items():
+        dst = cache[name]
+        dst.index_copy_(1, pids, a.movedim(0, 1).to(dst.dtype))
     return cache
 
 
@@ -429,6 +464,71 @@ class RadixCache:
                 created += 1
         return created
 
+    def plan_adopt(self, ids, salt: str = "") -> list:
+        """Chunk indices of ``ids`` with no trie node in ``salt``'s domain:
+        the pages an import must supply (a dry run of ``adopt``). Once one
+        chunk is missing every deeper one is too, so the plan is a suffix
+        of the chunk list."""
+        node = self._root_for(salt)
+        n = len(ids)
+        full = n // self.page_len
+        tail = n % self.page_len
+        total = full + (1 if tail else 0)
+        for i in range(full):
+            chunk = tuple(ids[i * self.page_len:(i + 1) * self.page_len])
+            child = node.children.get(chunk)
+            if child is None:
+                return list(range(i, total))
+            node = child
+        if tail:
+            t = tuple(ids[full * self.page_len:])
+            if not any(self._overlap(c.tokens, t) == len(t)
+                       for c in node.children.values()):
+                return [full]
+        return []
+
+    def adopt(self, ids, page_for: dict, salt: str = "") -> tuple:
+        """Graft imported pages into ``salt``'s trie: ``page_for[i]`` backs
+        chunk ``i`` of ``ids`` (the last may be partial). New nodes take a
+        cache reference (the caller then drops its own, leaving the cache
+        the only holder, as after ``register_prompt``). A chunk that has a
+        node already is touched, and its supplied page goes back in
+        ``dups`` for the caller to free. Returns (created, dups)."""
+        node, created, dups = self._root_for(salt), 0, []
+        n = len(ids)
+        full = n // self.page_len
+        for i in range(full):
+            chunk = tuple(ids[i * self.page_len:(i + 1) * self.page_len])
+            child = node.children.get(chunk)
+            if child is not None:
+                if i in page_for:
+                    dups.append(page_for[i])
+                self._touch(child)
+                node = child
+                continue
+            if i not in page_for:
+                # a gap the import cannot fill (the plan predates an
+                # eviction): stop grafting
+                return created, dups
+            child = _Node(chunk, page_for[i], node)
+            node.children[chunk] = child
+            self.pool.ref(page_for[i])
+            self._touch(child)
+            node = child
+            created += 1
+        tail = tuple(ids[full * self.page_len:])
+        if tail and full in page_for:
+            if any(self._overlap(c.tokens, tail) == len(tail)
+                   for c in node.children.values()):
+                dups.append(page_for[full])
+            else:
+                leaf = _Node(tail, page_for[full], node)
+                node.children[tail] = leaf
+                self.pool.ref(page_for[full])
+                self._touch(leaf)
+                created += 1
+        return created, dups
+
     def _leaves(self):
         for root in self._roots.values():
             stack = list(root.children.values())
@@ -437,6 +537,27 @@ class RadixCache:
                 if not n.children:
                     yield n
                 stack.extend(n.children.values())
+
+    def cached_prefixes(self, limit: int = 4) -> list:
+        """The hottest cached prefixes across every domain: ``[(salt,
+        ids)]`` for the ``limit`` most recently used leaves, hottest first
+        (a leaf's path from its root is a maximal cached prefix)."""
+        scored = []
+        for salt, root in self._roots.items():
+            stack = list(root.children.values())
+            while stack:
+                n = stack.pop()
+                if n.children:
+                    stack.extend(n.children.values())
+                    continue
+                ids: list = []
+                node = n
+                while node is not None and node.parent is not None:
+                    ids[:0] = node.tokens
+                    node = node.parent
+                scored.append((n.last_use, salt, ids))
+        scored.sort(key=lambda t: t[0], reverse=True)
+        return [(salt, ids) for _, salt, ids in scored[:max(0, limit)]]
 
     def evictable_count(self) -> int:
         """Pages eviction could free, cascading: nodes whose whole subtree
@@ -624,6 +745,48 @@ class PagedKV:
                 self.pool.unref(pid)
                 self.cow_copies += 1
         return cows
+
+    # ---- page transport (prefill/decode disaggregation) -------------------
+
+    def acquire_prefix(self, ids, salt: str = "") -> tuple:
+        """Export pin: the longest cached prefix of ``ids`` in ``salt``'s
+        domain, with a transient reference on each of its pages so no
+        eviction frees them while their bytes are read. Returns
+        (page_ids, matched tokens); the caller ``release_pages`` them."""
+        if not self.prefix_cache:
+            return [], 0
+        pages, matched = self.radix.match(ids, salt=salt)
+        held = []
+        for i in range(self.pages_for(matched)):
+            self.pool.ref(pages[i])
+            held.append(int(pages[i]))
+        return held, matched
+
+    def release_pages(self, pids) -> None:
+        """Drop the references an export pin or a failed import holds."""
+        for pid in pids:
+            self.pool.unref(int(pid))
+
+    def alloc_import(self, n: int) -> list:
+        """``n`` pages for an import, each held by the importer. All or
+        nothing: on exhaustion the batch's pages are released before the
+        raise."""
+        pids = []
+        try:
+            for _ in range(n):
+                pids.append(self._alloc())
+        except PagePoolExhausted:
+            self.release_pages(pids)
+            raise
+        return pids
+
+    def finish_import(self, ids, chunk_pids: dict, salt: str = "") -> int:
+        """Graft written import pages into ``salt``'s domain and drop the
+        importer's references: new nodes end held by the cache alone, a
+        duplicate chunk's page frees at once. Returns nodes created."""
+        created, _ = self.radix.adopt(ids, chunk_pids, salt=salt)
+        self.release_pages(chunk_pids.values())
+        return created
 
     def register_prompt(self, slot: int, ids, salt: str = "") -> None:
         """Insert a prefilled prompt's pages into the radix cache (the

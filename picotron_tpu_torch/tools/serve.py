@@ -37,6 +37,20 @@ API (all bodies JSON):
   429 with ``"budget": "tenant_tokens" | "tenant_pages"``; the global
   budgets with ``"tokens" | "pages"``.
 - ``POST /drain``: start a graceful drain (202, then 409).
+- ``POST /kv/export`` / ``GET|POST /kv/pages`` / ``POST /kv/import`` /
+  ``GET /kv/prefixes``: the prefill/decode disaggregation plane
+  (``inference.role``, paged layout only; ``inference/page_transport.py``).
+  ``/kv/export`` prefills a prompt with a one-token budget and returns its
+  pages and first token as a transport payload; ``/kv/pages`` looks up the
+  longest radix-cached prefix of ``ids``; ``/kv/import`` lands a payload
+  in the local radix cache; ``/kv/prefixes?limit=N`` lists the hottest
+  cached prefixes. A ``/generate`` carrying that payload as ``"kv"`` seats
+  with no prefill dispatch; a payload this replica cannot use is dropped
+  and counted (``picotron_handoff_dropped_total``), never a 400, and the
+  request prefills here. A ``"prefill"`` replica sheds ``/generate``
+  (503, ``"role"``); a ``"decode"`` one answers ``/kv/export`` 503. The
+  8 MiB body cap holds for payloads too: at SmolLM-1.7B's width one bf16
+  page of 16 rows is 3 MiB raw, 4 MiB in base64.
 
 Admission (checked at POST time, in the JAX order): the prompt, the
 tenant, a bounded wait for the batcher lock (503 "stalled" past it), a
@@ -53,11 +67,8 @@ the watchdog read host state only: admission prices requests from the
 host queue and the host page allocator, ``/statz`` takes ``_mu`` with a
 1 s bounded wait, ``/metrics`` refreshes its gauges without it.
 
-Not ported yet, and refused, never dropped: the disaggregation plane
-(``/kv/export``, ``/kv/import``, ``/kv/pages``, ``/kv/prefixes``: 501;
-a request's ``"kv"`` payload: 400; ``--role prefill|decode``), the span
-tracer and the profiler (``/tracez``, ``/profilez``: 501; no SIGUSR2;
-``--obs-dump``).
+Not ported yet, and refused, never dropped: the span tracer and the
+profiler (``/tracez``, ``/profilez``: 501; no SIGUSR2; ``--obs-dump``).
 
 SIGTERM/SIGINT drains: readiness flips, queued requests finish "shed",
 slots in flight finish, and the CLI exits 0 (1 when the loop died). A
@@ -74,12 +85,15 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs, urlparse
 
+from picotron_tpu_torch.inference import page_transport
 from picotron_tpu_torch.inference.batcher import (
     ContinuousBatcher,
     GenerationResult,
     Request,
 )
+from picotron_tpu_torch.inference.paged_kv import PagePoolExhausted
 from picotron_tpu_torch.inference.tenancy import BASE_TENANT, Tenant
 from picotron_tpu_torch.models.llama import param_bytes
 from picotron_tpu_torch.obs import GLOBAL_REGISTRY
@@ -89,9 +103,7 @@ from picotron_tpu_torch.resilience.preemption import PreemptionGuard
 # lock: long enough for a woken thread to take it
 HANDOFF_S = 0.001
 
-# what the unported surfaces answer (501 bodies and the "kv" field's 400)
-NO_DISAGG = ("prefill/decode disaggregation (the KV page transport) is not "
-             "in the PyTorch port yet")
+# what the unported surfaces answer (501 bodies)
 NO_TRACER = ("the span tracer is not in the PyTorch port yet (the obs "
              "slice)")
 NO_PROFILER = ("on-demand profiler captures are not in the PyTorch port yet "
@@ -175,9 +187,12 @@ class FrontEnd:
             "picotron_weight_bytes",
             "model weight bytes resident on this replica").set(
                 float(self.weight_bytes))
-        # the port serves role "both" only (inference.role is refused at
-        # load otherwise); the gauge keeps a router's scrape uniform
-        self.role = "both"
+        # the disaggregated serving role (inference.role): "both" serves
+        # colocated; "prefill" prefills and hands pages off through
+        # /kv/export (its /generate sheds); "decode" seats imported pages.
+        # The gauge tells a router's scrape a prefill worker from an idle
+        # decode target
+        self.role = engine.cfg.inference.role
         self.obs.registry.gauge(
             "picotron_serve_role",
             "serving role of this replica", role=self.role).set(1.0)
@@ -252,22 +267,49 @@ class FrontEnd:
 
     # ---- admission --------------------------------------------------------
 
-    def submit(self, spec: dict) -> tuple:
+    def submit(self, spec: dict, _internal: bool = False) -> tuple:
         """Admission-check and submit one request. Returns (uid, waiter)
         or raises AdmissionError (the handler turns it into its status).
         Reads host state only: the prices come from the prompt, the host
-        queue and the host page allocator."""
+        queue and the host page allocator. ``_internal`` marks
+        ``kv_export``'s own one-token submission, which a prefill replica
+        takes although its public /generate sheds."""
+        if self.role == "prefill" and not _internal:
+            # a decode stream on a prefill worker is the interference the
+            # role split removes; 503: the router misplaced, not the client
+            self._reject("role")
+            raise AdmissionError(
+                503, "replica serves prefill only (inference.role: "
+                     "prefill); use POST /kv/export", retry_after=5)
         prompt = spec.get("prompt")
         if not isinstance(prompt, list) or not prompt \
                 or not all(isinstance(t, int) for t in prompt):
             raise AdmissionError(400, "prompt must be a non-empty list of "
                                       "token ids", retry_after=0)
-        if spec.get("kv") is not None:
-            # the JAX server seats a handoff payload (or drops an unusable
-            # one and self-prefills); the port can vouch for none, so it
-            # says so instead of dropping it
-            raise AdmissionError(400, f"kv payload refused: {NO_DISAGG}",
-                                 retry_after=0)
+        kv = spec.get("kv")
+        if kv is not None:
+            # the handoff payload, checked before taking a slot. One this
+            # replica can never use (contiguous layout, another page
+            # geometry or dtype) is dropped, not refused: the request is
+            # servable by prefilling here, and a mixed fleet degrades to
+            # colocated serving, never to client 400s
+            if not isinstance(kv, dict):
+                raise AdmissionError(400, "kv must be a transport payload "
+                                          "object", retry_after=0)
+            why = None
+            if self.engine.paged is None:
+                why = "contiguous kv_layout (no page pool)"
+            else:
+                try:
+                    page_transport.check_spec(self.engine, kv)
+                except page_transport.TransportError as e:
+                    why = str(e)
+            if why is not None:
+                self.obs.registry.counter(
+                    "picotron_handoff_dropped_total",
+                    "kv payloads dropped as locally unusable").inc()
+                self._event("kv_dropped", why=why[:200])
+                kv = None
         tenant, slot = self._resolve_tenant(spec.get("tenant"))
         timeout_s = spec.get("timeout_s", self.default_timeout_s)
         try:
@@ -280,6 +322,7 @@ class FrontEnd:
                 top_p=float(spec.get("top_p", 1.0)),
                 eos_id=spec.get("eos_id"),
                 timeout_s=None if timeout_s is None else float(timeout_s),
+                kv_import=kv,
                 tenant=self._tenant_salt(tenant),
                 priority=tenant.priority if tenant is not None else 1,
                 adapter_slot=slot,
@@ -499,6 +542,127 @@ class FrontEnd:
         self._event("tenant_remove", tenant=name)
         return {"ok": True, "tenant": name}
 
+    # ---- KV-page transport (prefill/decode disaggregation) -----------------
+
+    def _require_paged(self) -> None:
+        if self.engine.paged is None:
+            raise AdmissionError(
+                503, "kv transport requires inference.kv_layout: 'paged' "
+                     "on this replica", retry_after=0)
+
+    def kv_export(self, spec: dict) -> dict:
+        """POST /kv/export: run ``spec``'s prompt through the normal
+        admission and prefill with a one-token budget (that token is the
+        handoff's seat state), then serialize the prompt's radix-cached
+        pages as a transport payload. A repeated prompt prefills only its
+        last token. Raises AdmissionError on a shed or a failure."""
+        if self.role == "decode":
+            raise AdmissionError(
+                503, "replica serves decode only (inference.role: "
+                     "decode); export from a prefill/both replica",
+                retry_after=5)
+        self._require_paged()
+        prompt = spec.get("prompt")
+        # the tenant salts the exported chunks as it salts the domain the
+        # prefill lands in (submit resolves and checks it again)
+        salt = self._tenant_salt(self._resolve_tenant(
+            spec.get("tenant"))[0])
+        sub = dict(spec)
+        sub["max_new_tokens"] = 1
+        sub.pop("stream", None)
+        sub.pop("kv", None)
+        uid, waiter = self.submit(sub, _internal=True)
+        res = _await_result(waiter)
+        if res.finish_reason == "shed":
+            raise AdmissionError(503, "prefill shed (draining)",
+                                 retry_after=5)
+        if res.finish_reason not in ("length", "eos") or not res.tokens:
+            raise AdmissionError(
+                500, f"prefill finished {res.finish_reason!r}",
+                retry_after=1)
+        first = int(res.tokens[0])
+        if not self._acquire(timeout=30.0):
+            raise AdmissionError(503, "dispatch stalled (export "
+                                      "unavailable)", retry_after=10)
+        try:
+            payload = self._batcher.export_prefix(prompt,
+                                                  first_token=first,
+                                                  tenant=salt)
+        finally:
+            self._mu.release()
+        self._event("kv_export", uid=uid, tokens=len(payload["token_ids"]),
+                    pages=len(payload["pages"]),
+                    bytes=payload["bytes_total"],
+                    ttft_s=_r(res.ttft_s))
+        return {"uid": uid, "kv": payload,
+                "queue_wait_s": _r(res.queue_wait_s),
+                "ttft_s": _r(res.ttft_s)}
+
+    def kv_import(self, payload: dict) -> dict:
+        """POST /kv/import: land a transport payload in the local pool and
+        radix cache (no slot: the cross-replica prefix transfer). A later
+        /generate extending it hits it with no prefill for the covered
+        prefix."""
+        self._require_paged()
+        if not self._acquire(timeout=10.0):
+            raise AdmissionError(503, "dispatch stalled (import "
+                                      "unavailable)", retry_after=10)
+        try:
+            if self.stopped.is_set() or self.draining:
+                raise AdmissionError(503, "draining (restart in progress)",
+                                     retry_after=5)
+            try:
+                info = self._batcher.import_prefix(payload)
+            except page_transport.TransportError as e:
+                raise AdmissionError(400, f"bad kv payload: {e}",
+                                     retry_after=0)
+            except PagePoolExhausted:
+                raise AdmissionError(429, "kv page pool exhausted",
+                                     retry_after=5)
+        finally:
+            self._mu.release()
+        self._event("kv_import", **info)
+        return info
+
+    def kv_pages(self, ids, tenant=None) -> dict:
+        """GET/POST /kv/pages: the cross-replica prefix lookup, the longest
+        radix-cached prefix of ``ids`` as a payload (no first token: a
+        lookup vouches for pages, not logits); ``matched`` 0 is a miss.
+        ``tenant`` scopes the lookup to its domain."""
+        self._require_paged()
+        salt = self._tenant_salt(self._resolve_tenant(tenant)[0])
+        if (not isinstance(ids, list) or not ids
+                or not all(isinstance(t, int) for t in ids)):
+            raise AdmissionError(400, "ids must be a non-empty list of "
+                                      "token ids", retry_after=0)
+        if not self._acquire(timeout=10.0):
+            raise AdmissionError(503, "dispatch stalled (lookup "
+                                      "unavailable)", retry_after=10)
+        try:
+            payload = self._batcher.export_prefix(ids, tenant=salt)
+        finally:
+            self._mu.release()
+        return {"matched": len(payload["token_ids"]), "kv": payload}
+
+    def kv_prefixes(self, limit: int = 4) -> dict:
+        """GET /kv/prefixes: the hottest radix-cached prefixes (token ids
+        and owning tenant), hottest first: what a drain-time cache handoff
+        walks. A bounded wait for the lock: a wedged dispatch makes this
+        a 503, never a deadlock."""
+        self._require_paged()
+        if limit < 1:
+            raise AdmissionError(400, f"limit must be >= 1, got {limit}",
+                                 retry_after=0)
+        if not self._acquire(timeout=10.0):
+            raise AdmissionError(503, "dispatch stalled (enumeration "
+                                      "unavailable)", retry_after=10)
+        try:
+            entries = self.engine.paged.radix.cached_prefixes(limit)
+        finally:
+            self._mu.release()
+        return {"prefixes": [{"ids": list(ids), "tenant": salt or None}
+                             for salt, ids in entries]}
+
     # ---- dispatch loop ----------------------------------------------------
 
     def _on_token(self, uid: str, tok: int) -> None:
@@ -643,8 +807,8 @@ def _r(v: Optional[float]) -> Optional[float]:
 MAX_BODY_BYTES = 8 << 20  # request-body cap: reject before allocating
 
 
-_POST_UNPORTED = {"/profilez": NO_PROFILER, "/kv/export": NO_DISAGG,
-                  "/kv/import": NO_DISAGG, "/kv/pages": NO_DISAGG}
+_POST_UNPORTED = {"/profilez": NO_PROFILER}
+_POST_KV = ("/kv/export", "/kv/import", "/kv/pages")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -704,8 +868,32 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(body)
         elif path == "/tracez":
             self._json(501, {"error": NO_TRACER})
-        elif path.startswith(("/kv/pages", "/kv/prefixes")):
-            self._json(501, {"error": NO_DISAGG})
+        elif path.startswith("/kv/pages"):
+            # GET /kv/pages?ids=1,2,3[&tenant=name]: the lookup for short
+            # prompts (POST takes a JSON body for long ones)
+            q = parse_qs(urlparse(path).query)
+            try:
+                ids = [int(t) for t in q.get("ids", [""])[0].split(",")
+                       if t]
+            except ValueError as e:
+                self._json(400, {"error": f"bad ids: {e}"})
+                return
+            try:
+                self._json(200, f.kv_pages(
+                    ids, tenant=q.get("tenant", [None])[0]))
+            except AdmissionError as e:
+                self._error(e)
+        elif path.startswith("/kv/prefixes"):
+            q = parse_qs(urlparse(path).query)
+            try:
+                limit = int(q.get("limit", ["4"])[0])
+            except ValueError as e:
+                self._json(400, {"error": f"bad limit: {e}"})
+                return
+            try:
+                self._json(200, f.kv_prefixes(limit))
+            except AdmissionError as e:
+                self._error(e)
         elif path == "/tenants":
             try:
                 self._json(200, f.tenants_snapshot())
@@ -728,7 +916,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self) -> None:
         if self.path not in ("/generate", "/tenants", "/drain",
-                             *_POST_UNPORTED):
+                             *_POST_UNPORTED, *_POST_KV):
             self._json(404, {"error": f"unknown path {self.path}"})
             return
         try:
@@ -766,6 +954,21 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(200, self.front.tenants_add(spec))
             except AdmissionError as e:
                 self._error(e)
+            return
+        if self.path in _POST_KV:
+            f = self.front
+            try:
+                if self.path == "/kv/export":
+                    out = f.kv_export(spec)
+                elif self.path == "/kv/import":
+                    out = f.kv_import(spec.get("kv") or spec)
+                else:
+                    out = f.kv_pages(spec.get("ids"),
+                                     tenant=spec.get("tenant"))
+            except AdmissionError as e:
+                self._error(e)
+                return
+            self._json(200, out)
             return
         try:
             uid, waiter = self.front.submit(spec)
@@ -909,6 +1112,8 @@ def _build(args, ap, device):
                  "directory it is given")
     if args.kv_layout:
         cfg.inference.kv_layout = args.kv_layout
+    if args.role:
+        cfg.inference.role = args.role
     if args.overlap:
         # the pipelined scheduler; streams stay the serial ones
         cfg.inference.overlap = True
@@ -1071,8 +1276,9 @@ def main(argv=None, device=None) -> int:
     ap.add_argument("--max-seq-len", type=int, default=None)
     ap.add_argument("--role", choices=("prefill", "decode", "both"),
                     default=None,
-                    help="disaggregated serving role; the port serves "
-                         "'both' only")
+                    help="disaggregated serving role (overrides "
+                         "inference.role; prefill/decode require "
+                         "inference.kv_layout: paged)")
     ap.add_argument("--kv-layout", choices=("contiguous", "paged"),
                     default=None, help="KV cache layout override")
     ap.add_argument("--overlap", action="store_true",
@@ -1101,8 +1307,6 @@ def main(argv=None, device=None) -> int:
                     help="save the smoke's trace and metrics (needs the "
                          "span tracer: refused)")
     args = ap.parse_args(argv)
-    if args.role not in (None, "both"):
-        ap.error(f"--role {args.role}: {NO_DISAGG}; it serves role 'both'")
     if args.obs_dump:
         ap.error(f"--obs-dump: {NO_TRACER}")
 

@@ -558,7 +558,7 @@ def test_config_validation_messages_and_unported_options():
     with pytest.raises(ValueError, match="inference.decode_block_len must"):
         Config.from_dict({"inference": {"decode_block_len": 0}})
     with pytest.raises(ValueError, match="not in the PyTorch port yet"):
-        Config.from_dict({"inference": {"role": "prefill"}})
+        Config.from_dict({"inference": {"dp_size": 2}})
     cfg = Config.from_dict({"inference": {"kv_layout": "contiguous",
                                           "unknown_knob": 3},
                             "training": {"seq_length": 4}})

@@ -440,9 +440,8 @@ def test_config_and_engine_validate_dtypes():
     with pytest.raises(ValueError, match=r"unknown inference.kv_cache_dtype "
                                          r"'fp8' \(auto\|int8\)"):
         Config.from_dict({"inference": {"kv_cache_dtype": "fp8"}})
-    for raw in ({"role": "decode"}, {"dp_size": 2}):
-        with pytest.raises(ValueError, match="not in the PyTorch port yet"):
-            Config.from_dict({"inference": raw})
+    with pytest.raises(ValueError, match="not in the PyTorch port yet"):
+        Config.from_dict({"inference": {"dp_size": 2}})
     with pytest.raises(ValueError, match="mutually exclusive with "
                                          "kv_cache_dtype: 'int8'"):
         Config.from_dict({"inference": {"kv_layout": "paged",

@@ -22,8 +22,9 @@ object whose ``before_dispatch`` blocks on an event the test sets (never a
 sleep): the drain (``/readyz`` "draining", the queued request shed with 503
 and ``Retry-After: 5``, the one in flight served, ``/drain`` 202 then
 409), a dispatch loop that dies (stranded streams get "error", 409
-"dead", admission sheds), the stall watchdog, the refused surfaces (501
-and 400), and the CLI in a subprocess (``--smoke``; a served POST, then
+"dead", admission sheds), the stall watchdog, the refused surfaces (501;
+the /kv plane and a ``"kv"`` payload as the JAX server answers them), and
+the CLI in a subprocess (``--smoke``; a served POST, then
 SIGTERM and exit 0). Every wait is bounded and every server is drained and
 closed.
 """
@@ -797,8 +798,18 @@ def test_tenant_removed_mid_flight_degrades_to_the_base_adapter(tiny):
     ("GET", "/kv/prefixes"), ("POST", "/kv/export"), ("POST", "/kv/import"),
     ("POST", "/kv/pages")])
 def test_unported_surfaces_answer_501(servers, method, path):
-    st, _, body = _http(servers[1].port, method, path,
-                        {} if method == "POST" else None)
+    """The tracer and the profiler answer 501 naming the obs slice. The /kv
+    plane is ported: it answers what the JAX server answers to the same
+    request (on this contiguous pair, 503: the transport needs pages)."""
+    body = {} if method == "POST" else None
+    st, hdr, out = _http(servers[1].port, method, path, body)
+    if path.startswith("/kv/"):
+        jst, jhdr, jout = _http(servers[0].port, method, path, body)
+        assert (st, hdr.get("Retry-After"), out) == (
+            jst, jhdr.get("Retry-After"), jout)
+        assert st == 503 and "paged" in out["error"]
+        return
+    body = out
     assert st == 501
     assert "not in the PyTorch port yet" in body["error"]
     assert ("obs slice" in body["error"]) == (path in ("/tracez",
@@ -806,29 +817,50 @@ def test_unported_surfaces_answer_501(servers, method, path):
 
 
 def test_kv_payload_and_tenantless_requests_are_refused(tiny):
-    """The disaggregation payload is a 400 naming it (the JAX server would
-    drop it and prefill); without a registry a tenant name is a 400 and
-    /tenants a 400."""
+    """A handoff payload this contiguous replica cannot use is dropped and
+    counted, and the request queued to prefill here, as the JAX server
+    does; a payload that is no object is a 400 on both. Without a registry
+    a tenant name is a 400 and /tenants a 400."""
+    jcfg, jparams, params = tiny
+    jfront = jax_serve.FrontEnd(_jax_engine(make_config(MODEL, seq=MAX_LEN)),
+                                jparams, log=_quiet)
     front = serve.FrontEnd(_port_engine(), tiny[2], log=_quiet)
-    with pytest.raises(serve.AdmissionError) as e:
-        front.submit({"prompt": [1, 2], "kv": {"pages": []}})
-    assert e.value.status == 400 and "disaggregation" in e.value.reason
+    for f in (jfront, front):
+        uid, _ = f.submit({"prompt": [1, 2], "kv": {"pages": []},
+                           "uid": "k"})
+        assert uid == "k" and f._batcher.queue_depth == 1
+        assert f._batcher._pending[0].kv_import is None
+        assert f.obs.registry.counter(
+            "picotron_handoff_dropped_total").value == 1
+        with pytest.raises(Exception) as e:
+            f.submit({"prompt": [1, 2], "kv": [1]})
+        assert (e.value.status, e.value.reason) == (
+            400, "kv must be a transport payload object")
     for fn in (lambda: front.submit({"prompt": [1], "tenant": "acme"}),
                front.tenants_snapshot, lambda: front.tenants_add(ACME),
                lambda: front.tenants_remove("acme")):
         with pytest.raises(serve.AdmissionError) as e:
             fn()
         assert e.value.status == 400
-    assert front._batcher.queue_depth == 0
+    assert front._batcher.queue_depth == 1
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--smoke", "--role", "prefill"], "disaggregation"),
-    (["--smoke", "--role", "decode"], "disaggregation"),
+    # the smoke's contiguous layout cannot take a disaggregated role: the
+    # JAX CLI's own refusal of the same argv (None: read from it)
+    pytest.param(["--smoke", "--role", "prefill"], None,
+                 id="argv0-disaggregation"),
+    pytest.param(["--smoke", "--role", "decode"], None,
+                 id="argv1-disaggregation"),
     (["--smoke", "--obs-dump", "dump"], "span tracer"),
     (["--random-init"], "pass --config"),
 ])
 def test_cli_refuses_what_the_port_lacks(capsys, argv, message):
+    if message is None:
+        with pytest.raises(ValueError) as theirs:
+            jax_serve.main(argv)
+        message = str(theirs.value)
+        assert "requires the paged KV layout" in message
     with pytest.raises(SystemExit):
         serve.main(argv, device="cpu")
     assert message in capsys.readouterr().err

@@ -961,8 +961,9 @@ def test_spec_config_validation_matches_jax(raw):
 
 def test_spec_config_loads_and_round_trips():
     """spec_len 4 loads with every spec field read; the nested controller
-    section round-trips; dp sharding and the disaggregation roles are
-    still refused."""
+    section round-trips; dp sharding is still refused, and the
+    disaggregation roles, served since the page transport, need the paged
+    layout."""
     cfg = Config.from_dict({"inference": {
         "spec_len": 4, "drafter": "learned", "spec_ngram": 2,
         "spec_history_window": 16,
@@ -976,10 +977,13 @@ def test_spec_config_loads_and_round_trips():
     for f in ("enabled", "target", "low", "window", "hysteresis", "cooloff",
               "latency_min_samples"):
         assert getattr(SpecControllerConfig(), f) == getattr(jdefaults, f)
-    for raw in ({"dp_size": 2}, {"role": "decode"},
-                {"role": "prefill"}):
-        with pytest.raises(ValueError, match="not in the PyTorch port yet"):
-            Config.from_dict({"inference": raw})
+    with pytest.raises(ValueError, match="not in the PyTorch port yet"):
+        Config.from_dict({"inference": {"dp_size": 2}})
+    for role in ("decode", "prefill"):
+        with pytest.raises(ValueError, match="requires the paged KV layout"):
+            Config.from_dict({"inference": {"role": role}})
+        assert Config.from_dict({"inference": {
+            "role": role, "kv_layout": "paged"}}).inference.role == role
     eng = InferenceEngine(Config.from_dict({"model": MODEL, "inference": {
         "spec_len": 3, "spec_ngram": 2, "drafter": "learned"}}), "cpu",
         slots=2, max_seq_len=MAX_LEN)
